@@ -5,24 +5,39 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failed check exits non-zero):
+Phases (any failed check exits non-zero; each prints its seconds):
 
 1. Device: a CUDA device is required; prints the card's name and power limit
    and turns TF32 off for float32 matmuls and convolutions.
 2. Build: compiles the Hopper kernels from ``onnx_quantize_tpu_torch/csrc``.
-3. Kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (a decode step, M=32, and a 32x128 prefill, M=4096)
-   and at odd shapes (ragged M and N, a pad group, signed and unsigned
-   weights), in bfloat16 and float32; times both with CUDA events.
+3. Kernels: each kernel against its plain PyTorch version on the card, timed
+   with CUDA events. W4/W8 at the main path's shapes (a decode step, M=32,
+   and a 32x128 prefill, M=4096) and at odd shapes (ragged M and N, a pad
+   group, signed and unsigned weights), in bfloat16 and float32. Flash
+   decode at B=32, S=4096, 4 query heads on 1 KV head of 256, ragged
+   positions (0, tile edges, the pos = S sentinel), window 512 and none, odd
+   shapes, timed at B=32, S=1024, pos=640. Flash attention at T=S=2048 and
+   512 in bfloat16, window 512 and none, and an odd float32 shape.
 4. Main path: Gemma-3-270M at full width in bfloat16 from a seeded init, W4
    g128 body plus int8 per-channel lm_head, fused q/k/v and gate/up, an int8
    KV cache at B=32 and max_seq=512: prefill 32 prompts of 128 tokens, 64
    greedy decode steps, then ``generate`` on 3 ragged prompts. Checks the
    kernel launch counts, finite logits, tokens in range, and prefill logits
    against the same engine with the kernels swapped for their plain versions.
-5. Rates: decode tokens/s for the quantized and an unquantized bf16 arm, by
-   the slope between two step counts timed with CUDA events; the arms
-   alternate, and each reports the median of 5 samples.
+5. Rates: decode tokens/s for the quantized arm, the same with flash decode
+   (``fused_attention=True``) and an unquantized bf16 arm, by the slope
+   between two step counts timed with CUDA events; the arms take turns, and
+   each reports the median of 5 samples.
+6. Window scoring: ``perplexity_from_tokens`` of the phase-4 model over a
+   seeded 4096-token stream (windows of 2048, stride 512: 5 windows), which
+   runs flash attention in every layer. Checks the launch counts per window,
+   a finite result, and the mean NLL against the same run with every kernel
+   swapped for its plain version; prints the bf16 model's ppl beside it.
+7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 640 tokens through
+   an engine with an int8 cache and ``fused_attention=True`` (flash decode in
+   every layer of every one-token forward, past the 512-token window).
+   Checks the launch counts and the NLL against ``fused_attention=False``;
+   prints ``score_ppl`` for the float, int8 and int4 caches and steps/s.
 
 The line before the last is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``.
@@ -33,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -165,21 +181,138 @@ def run_kernel_checks(gen) -> dict:
     return results
 
 
+# Why these tolerances: flash decode reads int8 codes and float32 scales and
+# forms the same float32 products as its plain version, summed in another
+# order (and softmax taken online): 1e-4 of the output's largest magnitude.
+# Flash attention in float32 likewise. In bfloat16 both round p to bf16
+# before the PV product, but the kernel rounds exp(s - running max) and the
+# plain version exp(s - row max), and the output rounds to bf16 (2^-8
+# relative): 1e-2 of the largest output.
+ATTN_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+GLOBAL_LAYERS, LOCAL_LAYERS = 3, 15  # Gemma-3-270M: every 6th of 18 layers is global
+
+
+def fd_inputs(B, S, Hq, Hkv, D, pos, gen):
+    """Pre-scaled float32 queries and an int8 cache with float32 scales."""
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda") / 16
+    k, v = (torch.randint(-127, 128, (B, S, Hkv, D), generator=gen, device="cuda",
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (1e-3 + 3e-2 * torch.rand((B, S, Hkv), generator=gen, device="cuda")
+              for _ in range(2))
+    return q, k, ks, v, vs, torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def fa_inputs(B, T, Hq, Hkv, D, dtype, gen):
+    q = (torch.randn((B, T, Hq, D), generator=gen, device="cuda") / D ** 0.5).to(dtype)
+    k, v = (torch.randn((B, T, Hkv, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def check_attention(name, got, want, dtype) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    check(err <= ATTN_REL_TOL[dtype] * scale,
+          f"{name}: max abs err {err:.3e} > {ATTN_REL_TOL[dtype]} * {scale:.3e}")
+    return err
+
+
+def run_attention_checks(gen) -> dict:
+    from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode
+
+    fd, fa = flash_decode, flash_attention
+    results = {}
+    # Flash decode: ragged positions at the main shape, then odd shapes.
+    B, S = 32, 4096
+    ragged = [0, 127, 128, 511, 512, 4095, S]
+    ragged += torch.randint(0, S, (B - len(ragged),), generator=gen, device="cuda").tolist()
+    fd_cases = [("fd_B32_S4096_g4_D256", (B, S, 4, 1, 256, ragged)),
+                ("fd_odd_g1_D128_S128", (3, 128, 2, 2, 128, [0, 127, 128])),
+                ("fd_odd_kv2_D128", (4, 512, 4, 2, 128, [0, 63, 300, 512])),
+                ("fd_odd_kv2_g4_D256_S128", (2, 128, 8, 2, 256, [127, 5]))]
+    err_max = 0.0
+    for name, shape in fd_cases:
+        args = fd_inputs(*shape, gen)
+        for window in (512, 16, None):
+            got = fd.flash_decode_int8(*args, window=window)
+            want = fd.flash_decode_int8_reference(*args, window=window)
+            torch.cuda.synchronize()
+            err = check_attention(f"{name} window={window}", got, want, torch.float32)
+            err_max = max(err_max, err)
+            print(f"kernel flash_decode {name} window={window}: max_abs_err={err:.3e}", flush=True)
+    # One decode step's shapes: B=32 sequences at position 640 of a 1024 cache.
+    args = fd_inputs(32, 1024, 4, 1, 256, [640] * 32, gen)
+    times = {}
+    for window in (None, 512):
+        times[window] = (cuda_time_ms(lambda: fd.flash_decode_int8(*args, window=window), 50),
+                         cuda_time_ms(lambda: fd.flash_decode_int8_reference(*args, window=window),
+                                      50))
+        print(f"kernel flash_decode B=32 S=1024 pos=640 window={window}: "
+              f"kernel_ms={times[window][0]:.4f} plain_ms={times[window][1]:.4f}", flush=True)
+    results["flash_decode"] = {
+        "max_abs_err": err_max,
+        # Per decode step of the 270M model: 3 global and 15 local layers.
+        "ms": GLOBAL_LAYERS * times[None][0] + LOCAL_LAYERS * times[512][0],
+        "plain_ms": GLOBAL_LAYERS * times[None][1] + LOCAL_LAYERS * times[512][1]}
+
+    # Flash attention: the window shapes in bf16, then an odd float32 shape.
+    fa_cases = [("fa_T2048_g4_D256", (1, 2048, 4, 1, 256, torch.bfloat16)),
+                ("fa_T512_g4_D256", (1, 512, 4, 1, 256, torch.bfloat16)),
+                ("fa_odd_B2_T48_mha_D128_f32", (2, 48, 2, 2, 128, torch.float32))]
+    err_max = 0.0
+    times = {}
+    for name, shape in fa_cases:
+        args = fa_inputs(*shape, gen)
+        for window in (512, None):
+            got = fa.flash_attention(*args, sliding_window=window)
+            want = fa.flash_attention_reference(*args, sliding_window=window)
+            torch.cuda.synchronize()
+            err = check_attention(f"{name} window={window}", got, want, shape[-1])
+            err_max = max(err_max, err)
+            line = f"kernel flash_attention {name} window={window}: max_abs_err={err:.3e}"
+            if shape[-1] == torch.bfloat16:
+                times[name, window] = (
+                    cuda_time_ms(lambda: fa.flash_attention(*args, sliding_window=window), 5),
+                    cuda_time_ms(lambda: fa.flash_attention_reference(
+                        *args, sliding_window=window), 5))
+                line += (f" kernel_ms={times[name, window][0]:.4f} "
+                         f"plain_ms={times[name, window][1]:.4f}")
+            print(line, flush=True)
+    full = "fa_T2048_g4_D256"
+    results["flash_attention"] = {
+        "max_abs_err": err_max,
+        # Per 2048-token scoring window of the 270M model: 3 global, 15 local layers.
+        "ms": GLOBAL_LAYERS * times[full, None][0] + LOCAL_LAYERS * times[full, 512][0],
+        "plain_ms": GLOBAL_LAYERS * times[full, None][1] + LOCAL_LAYERS * times[full, 512][1]}
+    return results
+
+
 # -- phase 4: the main path ------------------------------------------------------
 
 @contextlib.contextmanager
 def plain_kernels():
     """Swap the kernel wrappers for their plain versions (reference run only:
     the package itself never routes a CUDA tensor to a plain version)."""
-    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4, matmul_w8
+    from onnx_quantize_tpu_torch.ops.kernels import (
+        flash_attention,
+        flash_decode,
+        matmul_w4,
+        matmul_w8,
+    )
 
-    saved = matmul_w4.w4_matmul, matmul_w8.w8_matmul
-    matmul_w4.w4_matmul = matmul_w4.w4_dequant_matmul_plain
-    matmul_w8.w8_matmul = matmul_w8.w8_dequant_matmul_plain
+    swaps = [(matmul_w4, "w4_matmul", matmul_w4.w4_dequant_matmul_plain),
+             (matmul_w8, "w8_matmul", matmul_w8.w8_dequant_matmul_plain),
+             (flash_attention, "flash_attention", flash_attention.flash_attention_reference),
+             (flash_decode, "flash_decode_int8", flash_decode.flash_decode_int8_reference)]
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        matmul_w4.w4_matmul, matmul_w8.w8_matmul = saved
+        for (module, name, _), wrapper in zip(swaps, saved):
+            setattr(module, name, wrapper)
 
 
 def build_models():
@@ -278,14 +411,15 @@ def run_main_path(model, qparams) -> dict:
 
 # -- phase 5: decode rates -------------------------------------------------------
 
-def decode_arm(model, params, kv_quant: bool, lo: int = 16, hi: int = 48):
-    """A prefilled B=32 engine; each call of the returned function times one
-    sample of decode tokens/s, the slope between ``lo`` and ``hi`` steps."""
+def decode_arm(model, params, kv_quant: bool, fused: bool = False, lo: int = 16, hi: int = 48):
+    """A prefilled B=32 engine (``fused``: flash decode over its int8 cache);
+    each call of the returned function times one sample of decode tokens/s,
+    the slope between ``lo`` and ``hi`` steps."""
     from onnx_quantize_tpu_torch.engine import InferenceEngine
 
     B, T = 32, 128
     engine = InferenceEngine(model, params, max_batch=B, max_seq=512, kv_quant=kv_quant,
-                             dtype=torch.bfloat16)
+                             dtype=torch.bfloat16, fused_attention=fused)
     ids = np.random.default_rng(SEED).integers(1, model.cfg.vocab_size, size=(B, T))
     cache, logits = engine.prefill(engine.new_cache(), ids, np.full((B,), T, np.int32))
     tokens = torch.argmax(logits, dim=-1)
@@ -309,6 +443,136 @@ def decode_arm(model, params, kv_quant: bool, lo: int = 16, hi: int = 48):
     return sample
 
 
+# -- phase 6: window scoring -----------------------------------------------------
+
+def kernel_modules() -> dict:
+    """Each kernel's module, which holds its launch counter."""
+    from onnx_quantize_tpu_torch.ops.kernels import (
+        flash_attention,
+        flash_decode,
+        matmul_w4,
+        matmul_w8,
+    )
+
+    return {"w4": matmul_w4, "w8": matmul_w8, "flash_attention": flash_attention,
+            "flash_decode": flash_decode}
+
+
+def kernel_counts() -> dict:
+    return {name: module.launches for name, module in kernel_modules().items()}
+
+
+def reset_counts() -> None:
+    for module in kernel_modules().values():
+        module.launches = 0
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()``, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# Why: the two runs read the same weights and bf16 stream; the kernels differ
+# from their plain versions in float32 summation order and (flash attention)
+# where p rounds to bf16, which flips bf16 roundings of activations through 18
+# layers (PR 1's prefill logits moved by up to 1.6% of the largest logit). The
+# per-token NLL changes so made have no common sign; averaged over thousands
+# of scored tokens they stay far inside 0.2% of the mean NLL.
+MEAN_NLL_REL_TOL = 2e-3
+
+
+def run_window_scoring(model, qparams, fparams, card) -> dict:
+    from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
+
+    cfg = model.cfg
+    max_length, stride, n_tokens = 2048, 512, 4096
+    windows = 1 + (n_tokens - max_length) // stride
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, n_tokens)
+
+    def score(params):
+        return timed(lambda: perplexity_from_tokens(model, params, tokens, max_length, stride))
+
+    reset_counts()
+    ppl_q, s_q = score(qparams)
+    launches = kernel_counts()
+    want = {"w4": 4 * cfg.num_layers * windows, "w8": windows,
+            "flash_attention": cfg.num_layers * windows, "flash_decode": 0}
+    check(launches == want, f"window scoring launched {launches}, expected {want}")
+    check(math.isfinite(ppl_q), f"window scoring ppl {ppl_q} is not finite")
+    with plain_kernels():
+        ppl_plain, s_plain = score(qparams)
+    check(kernel_counts() == launches, "the plain-version scoring run launched kernels")
+    ppl_bf16, s_bf16 = score(fparams)
+    nll_q, nll_plain = math.log(ppl_q), math.log(ppl_plain)
+    tol = MEAN_NLL_REL_TOL * nll_plain
+    print(f"window scoring launches over {windows} windows: {launches}; per window "
+          f"{ {k: v // windows for k, v in launches.items()} }", flush=True)
+    print(f"window scoring (Gemma-3-270M bf16, seed {SEED}, {n_tokens} tokens, window "
+          f"{max_length}, stride {stride}) on {card}: ppl W4+int8 head kernels {ppl_q:.4f} "
+          f"({1e3 * s_q / windows:.1f} ms/window), plain versions {ppl_plain:.4f} "
+          f"({1e3 * s_plain / windows:.1f} ms/window), bf16 {ppl_bf16:.4f} "
+          f"({1e3 * s_bf16 / windows:.1f} ms/window); mean NLL kernels vs plain "
+          f"{nll_q:.6f} vs {nll_plain:.6f}, tol {tol:.2e}", flush=True)
+    check(abs(nll_q - nll_plain) <= tol, "window scoring mean NLL: kernels disagree with plain")
+    return launches
+
+
+# -- phase 7: decode-path scoring -------------------------------------------------
+
+# Why: both engines hold the same int8 codes; the fused path scores them in
+# float32 in the kernel, the unfused attend rounds scores and weighted values
+# to bf16 in its einsums. Those roundings move logits by a fraction of a
+# percent through 18 bf16 layers, with no common sign over 20,000 scored
+# tokens: 0.2% of the mean NLL bounds their effect on it.
+FUSED_NLL_REL_TOL = 2e-3
+
+
+def run_decode_scoring(model, qparams, card) -> dict:
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    cfg = model.cfg
+    B, T, max_seq = 32, 640, 1024
+    ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (B, T))
+    forwards = T - 1  # the one-token prefill and T - 2 decode steps
+
+    def engine(kv_quant, fused=False):
+        return InferenceEngine(model, qparams, max_batch=B, max_seq=max_seq, kv_quant=kv_quant,
+                               fused_attention=fused, dtype=torch.bfloat16)
+
+    reset_counts()
+    (nll_f, cnt_f), s_f = timed(lambda: engine(True, fused=True).score_nll(ids))
+    launches = kernel_counts()
+    check(launches["flash_decode"] == cfg.num_layers * forwards
+          and launches["flash_attention"] == 0,
+          f"decode scoring launched {launches}, expected {cfg.num_layers} flash decode per "
+          f"one-token forward ({forwards}) and no flash attention")
+    (nll_u, cnt_u), s_u = timed(lambda: engine(True).score_nll(ids))
+    check(kernel_counts()["flash_decode"] == launches["flash_decode"],
+          "the unfused engine launched flash decode")
+    check(bool(np.isfinite(nll_f).all()) and bool((cnt_f == T - 1).all())
+          and bool((cnt_u == cnt_f).all()), "decode scoring NLL not finite or counts wrong")
+    mean_f, mean_u = nll_f.sum() / cnt_f.sum(), nll_u.sum() / cnt_u.sum()
+    tol = FUSED_NLL_REL_TOL * mean_u
+    ppl = {"int8 fused": math.exp(mean_f), "int8": math.exp(mean_u)}
+    seconds = {"int8 fused": s_f, "int8": s_u}
+    for name, kv in (("float", False), ("int4", "int4")):
+        ppl[name], seconds[name] = timed(lambda: engine(kv).score_ppl(ids))
+    print(f"decode scoring launches: {launches}; per one-token forward "
+          f"{launches['flash_decode'] / forwards:.0f} flash decode", flush=True)
+    print(f"decode-path scoring (Gemma-3-270M bf16 W4+int8 head, {B} rows x {T} tokens, "
+          f"max_seq {max_seq}) on {card}: ppl "
+          + ", ".join(f"{k} cache {v:.4f}" for k, v in ppl.items())
+          + "; steps/s " + ", ".join(f"{k} {forwards / v:.2f}" for k, v in seconds.items())
+          + f"; mean NLL fused vs unfused {mean_f:.6f} vs {mean_u:.6f}, tol {tol:.2e}",
+          flush=True)
+    check(abs(mean_f - mean_u) <= tol, "decode scoring NLL: fused disagrees with unfused")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -328,6 +592,16 @@ def main() -> int:
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
+    phase_t0 = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal phase_t0
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t0:.1f} s", flush=True)
+        phase_t0 = now
+
+    phase_done("1 device")
+
     # Phase 2: build.
     t0 = time.perf_counter()
     lib_path, log, build_s = build_kernel_library()
@@ -335,44 +609,69 @@ def main() -> int:
     print(f"build: {lib_path.name} nvcc {build_s:.1f} s, ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    phase_done("2 build")
 
     # Phase 3: kernels against their plain versions.
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernel_results = run_kernel_checks(gen)
+    kernel_results.update(run_attention_checks(gen))
+    phase_done("3 kernels")
 
     # Phase 4: the main path.
     model, qparams, fparams = build_models()
     launches = run_main_path(model, qparams)
+    phase_done("4 main path")
 
     # Phase 5: rates.
-    # The loop is host-bound and the host is shared, so the arms alternate
-    # (q, bf16, bf16, q, ...) and each reports the median of 5 samples.
+    # The loop is host-bound and the host is shared, so the arms take turns
+    # (the order rotates each round) and each reports the median of 5 samples.
+    # The fused arm is the quantized engine with flash decode in every layer.
     arms = {"quantized": decode_arm(model, qparams, kv_quant=True),
+            "quantized fused": decode_arm(model, qparams, kv_quant=True, fused=True),
             "bf16": decode_arm(model, fparams, kv_quant=False)}
     rates = {name: [] for name in arms}
+    names = list(arms)
     for r in range(5):
-        for name in (("quantized", "bf16") if r % 2 == 0 else ("bf16", "quantized")):
+        for name in names[r % 3:] + names[:r % 3]:
             rates[name].append(arms[name]())
-    rate_q, rate_bf16 = (float(np.median(rates[n])) for n in ("quantized", "bf16"))
+    rate_q, rate_f, rate_bf16 = (float(np.median(rates[n])) for n in names)
     print(f"decode tok/s samples: {json.dumps({n: [round(v, 1) for v in r] for n, r in rates.items()})}")
     print(f"decode tok/s (B=32, prompt 128, slope 16->48 steps, CUDA events, median of 5) on "
-          f"{card}: quantized W4+int8 head+int8 KV {rate_q:.1f}, bf16 {rate_bf16:.1f}, "
-          f"ratio {rate_q / rate_bf16:.3f}", flush=True)
+          f"{card}: quantized W4+int8 head+int8 KV {rate_q:.1f}, with flash decode "
+          f"{rate_f:.1f}, bf16 {rate_bf16:.1f}, ratio quantized/bf16 {rate_q / rate_bf16:.3f}, "
+          f"fused/unfused {rate_f / rate_q:.3f}", flush=True)
+    phase_done("5 rates")
 
-    sources = {"w4": ("onnx_quantize_tpu_torch/csrc/matmul_w4.cu",
-                      "onnx_quantize_tpu/ops/kernels/matmul_w4.py:32"),
-               "w8": ("onnx_quantize_tpu_torch/csrc/matmul_w8.cu",
-                      "onnx_quantize_tpu/ops/kernels/matmul_w8.py:27")}
+    # Phase 6: window scoring (the flash-attention path).
+    launches["flash_attention"] = run_window_scoring(model, qparams, fparams,
+                                                     card)["flash_attention"]
+    phase_done("6 window scoring")
+
+    # Phase 7: decode-path scoring (the flash-decode path).
+    launches["flash_decode"] = run_decode_scoring(model, qparams, card)["flash_decode"]
+    phase_done("7 decode scoring")
+
+    # name in the kernels line, CUDA source, replaced TPU kernel.
+    sources = {
+        "w4": ("w4_dequant_matmul", "onnx_quantize_tpu_torch/csrc/matmul_w4.cu",
+               "onnx_quantize_tpu/ops/kernels/matmul_w4.py:32"),
+        "w8": ("w8_dequant_matmul", "onnx_quantize_tpu_torch/csrc/matmul_w8.cu",
+               "onnx_quantize_tpu/ops/kernels/matmul_w8.py:27"),
+        "flash_attention": ("flash_attention", "onnx_quantize_tpu_torch/csrc/flash_attention.cu",
+                            "onnx_quantize_tpu/ops/kernels/flash_attention.py:30"),
+        "flash_decode": ("flash_decode", "onnx_quantize_tpu_torch/csrc/flash_decode.cu",
+                         "onnx_quantize_tpu/ops/kernels/flash_decode.py:38"),
+    }
     kernels = []
-    for name in ("w4", "w8"):
-        res = kernel_results[name]
-        check(launches[name] > 0, f"the main path launched no {name} kernel")
+    for key, (name, source, replaces) in sources.items():
+        res = kernel_results[key]
+        check(launches[key] > 0, f"its path launched no {name} kernel")
         kernels.append({
-            "name": f"{name}_dequant_matmul", "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,11 @@ the port runs eagerly: ``decode_multi`` is a Python loop under
 Capturing the decode step in a CUDA graph is later work.
 
 Works with float or quantized params (the Linear sites dispatch to the
-Hopper kernels on CUDA) and a float or int8 KV cache.
+Hopper kernels on CUDA) and a float, int8 or int4 KV cache. With
+``fused_attention=True`` every one-token forward over the int8 cache runs
+the flash-decode kernel. ``score_nll``/``score_ppl`` score token rows
+teacher-forced through the decode path, so the cache's quantization error is
+part of the result.
 """
 
 from __future__ import annotations
@@ -61,13 +65,37 @@ class InferenceEngine:
     """Prefill/decode engine on the device that holds ``params``."""
 
     def __init__(self, model, params: dict, max_batch: int = 8, max_seq: int = 2048,
-                 kv_quant: bool = False, dtype: torch.dtype = torch.float32):
-        if kv_quant not in (False, True):
-            raise NotImplementedError(
-                f"kv_quant={kv_quant!r}: only the int8 cache (True) or a float cache "
-                "(False) is ported; the int4 cache is in ROADMAP.md, Queue A item 7."
-            )
+                 kv_quant: bool | str = False, dtype: torch.dtype = torch.float32,
+                 fused_attention: bool | str = "auto"):
         cfg = model.cfg
+        # kv_quant: False | True/"int8" | "int4" (packed nibbles, half the
+        # cache bytes again; see kv_cache.py).
+        kv_quant_arg = kv_quant  # keep the caller's spelling for error text
+        if kv_quant in (False, None):
+            kv_bits, kv_quant = 8, False
+        elif kv_quant in (True, "int8"):
+            kv_bits, kv_quant = 8, True
+        elif kv_quant == "int4":
+            kv_bits, kv_quant = 4, True
+        else:
+            raise ValueError(
+                f"kv_quant must be False, True/'int8', or 'int4', got {kv_quant!r}"
+            )
+        # Flash decode over the int8 cache (ops/kernels/flash_decode.py) is
+        # opt-in, as in the JAX package, whose default was set on a TPU; the
+        # H100's own comparison is in PERF.md.
+        fusable = (
+            kv_quant and kv_bits == 8
+            and cfg.head_dim % 128 == 0 and max_seq % 128 == 0
+        )
+        self._fused_attn = fused_attention != "auto" and bool(fused_attention)
+        if self._fused_attn and not fusable:
+            raise ValueError(
+                "fused_attention requires an int8 KV cache, head_dim % 128"
+                f" == 0 and max_seq % 128 == 0 (got kv_quant="
+                f"{kv_quant_arg!r} [{kv_bits}-bit], "
+                f"head_dim={cfg.head_dim}, max_seq={max_seq})"
+            )
         self.model = model
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -77,7 +105,7 @@ class InferenceEngine:
         self.cache_cfg = KVCacheConfig(
             num_layers=cfg.num_layers, batch=max_batch, max_seq=max_seq,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, quantized=kv_quant,
-            dtype=dtype,
+            bits=kv_bits, dtype=dtype,
         )
 
     def new_cache(self) -> dict:
@@ -102,10 +130,13 @@ class InferenceEngine:
     # -- model forward with cache ---------------------------------------
 
     def _forward(self, cache, ids, positions, kv_positions, write_mask, last_lengths=None):
+        # The flash-decode kernel serves one-token forwards only.
+        fused = self._fused_attn and ids.shape[1] == 1
+
         def kv_write_fn(layer, k, v):
             write_kv(cache, layer, k, v, positions, write_mask)
             if self.cache_cfg.quantized:
-                return read_kv_quantized(cache, layer)
+                return read_kv_quantized(cache, layer, use_kernel=fused)
             return read_kv(cache, layer, dtype=self.dtype)
 
         model, params = self.model, self.params
@@ -208,6 +239,72 @@ class InferenceEngine:
         generated = (torch.stack(out, dim=1) if out
                      else torch.zeros((toks.shape[0], 0), dtype=torch.int64, device=self.device))
         return cache, generated.to(torch.int32)
+
+    @torch.inference_mode()
+    def _score(self, ids: torch.Tensor, lengths: torch.Tensor):
+        """Teacher-forced NLL through the decode path, one batch of rows.
+
+        Prefills exactly one token, then feeds the gold tokens one decode step
+        at a time, so every K/V row is written and read through the cache's
+        own quantization. ids: (B, T) on the device; lengths: (B,) int32 true
+        lengths (>= 2 to score). Returns (nll_sum (B,) float32, count (B,)
+        int32), both on the device: a Python loop with no host sync.
+        """
+        B, T = ids.shape
+        if T < 2:
+            raise ValueError("need at least two tokens to score a prediction")
+
+        def nll_of(logits, tgt, valid):
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            nll = -torch.gather(logp, 1, tgt[:, None])[:, 0]
+            return torch.where(valid, nll, 0.0)
+
+        cache, logits = self.prefill(self.new_cache(), ids[:, :1], lengths.clamp(max=1))
+        # Prefill's last-token logits predict position 1.
+        valid = lengths > 1
+        nll_sum = nll_of(logits, ids[:, 1], valid)
+        count = valid.to(torch.int32)
+        # Feed token i (1..T-2); its logits predict position i+1. The final
+        # token is never fed: its logits have no target.
+        for i in range(1, T - 1):
+            logits = self._decode_step(cache, ids[:, i], i < lengths)
+            valid = (i + 1) < lengths
+            nll_sum = nll_sum + nll_of(logits, ids[:, i + 1], valid)
+            count = count + valid.to(torch.int32)
+        return nll_sum, count
+
+    def score_nll(self, ids, lengths=None) -> tuple[np.ndarray, np.ndarray]:
+        """Teacher-forced NLL through the engine's decode path.
+
+        Scores ``ids`` (N, T) by prefilling one token and step-decoding the
+        rest, so the result reflects the configured KV-cache quantization
+        (``kv_quant``) at every position. Rows go in ``max_batch`` chunks.
+        Returns (nll_sum (N,) float32, count (N,) int32) numpy arrays.
+        """
+        ids = np.asarray(ids, np.int32)
+        if ids.ndim == 1:
+            ids = ids[None]
+        N, T = ids.shape
+        if T > self.max_seq:
+            raise ValueError(f"sequence length {T} exceeds max_seq={self.max_seq}")
+        lengths = (np.full((N,), T, np.int32) if lengths is None
+                   else np.asarray(lengths, np.int32))
+        nll = np.zeros((N,), np.float32)
+        cnt = np.zeros((N,), np.int32)
+        for start in range(0, N, self.max_batch):
+            rows = slice(start, min(start + self.max_batch, N))
+            n = rows.stop - rows.start
+            pad = self.max_batch - n
+            b_nll, b_cnt = self._score(self._token_ids(np.pad(ids[rows], ((0, pad), (0, 0)))),
+                                       self._tensor(np.pad(lengths[rows], (0, pad)), torch.int32))
+            nll[rows] = b_nll.cpu().numpy()[:n]
+            cnt[rows] = b_cnt.cpu().numpy()[:n]
+        return nll, cnt
+
+    def score_ppl(self, ids, lengths=None) -> float:
+        """Perplexity over ``ids`` via :meth:`score_nll` (decode-path KV)."""
+        nll, cnt = self.score_nll(ids, lengths)
+        return float(np.exp(nll.sum() / max(int(cnt.sum()), 1)))
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
                  sampling: SamplingParams = SamplingParams(),

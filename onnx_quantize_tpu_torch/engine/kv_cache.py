@@ -1,10 +1,14 @@
-"""KV cache, float or int8, updated in place.
+"""KV cache, float, int8 or int4, updated in place.
 
-Counterpart of ``onnx_quantize_tpu/engine/kv_cache.py`` (int8 and float
-caches; the int4 cache is not ported yet, ROADMAP.md Queue A item 7). Buffers
-are ``(L, B, S_max, H_kv, D)``; the int8 cache quantizes per (token, head)
+Counterpart of ``onnx_quantize_tpu/engine/kv_cache.py``. Buffers are
+``(L, B, S_max, H_kv, D)``; a quantized cache quantizes per (token, head)
 with a symmetric abs-max scale on write (``k_scale`` ``(L, B, S_max, H_kv)``)
-and attention reads the raw codes with the scales folded in.
+and attention reads the raw codes with the scales folded in. The int8 cache
+holds int8 codes in [-127, 127]. The int4 cache (``bits=4``) holds +-7
+codes packed two per byte along head_dim in the HALVES layout: byte ``j``
+holds ``d=j`` in its low nibble and ``d=j+D/2`` in its high one, each offset
+by 8 (not the weights' group-pair layout). Its buffers are uint8
+``(..., D/2)``, and the uint8 dtype is how a reader tells it from int8.
 
 Where the JAX package returns a new cache from every write (and donates the
 old one under jit), the port writes the buffers in place. A write takes a
@@ -21,17 +25,29 @@ import dataclasses
 import torch
 
 __all__ = ["KVCacheConfig", "QuantizedKV", "init_cache", "write_kv", "read_kv",
-           "read_kv_quantized"]
+           "read_kv_quantized", "pack_nibbles", "unpack_nibbles"]
 
 
 @dataclasses.dataclass
 class QuantizedKV:
-    """A layer's int8 K/V cache view, consumed without dequantization."""
+    """A layer's int8/int4 K/V cache view, consumed without dequantization.
 
-    k: torch.Tensor  # (B, S, H_kv, D) int8
+    ``use_kernel=True`` routes a one-token step to the flash-decode kernel
+    (``ops/kernels/flash_decode.py``, int8 only); otherwise the model runs
+    the scale-folded attend. Int4 views hold packed uint8 (last dim D/2);
+    ``k_ints()``/``v_ints()`` give the int8-valued codes."""
+
+    k: torch.Tensor  # (B, S, H_kv, D) int8, or (B, S, H_kv, D/2) uint8 packed int4
     v: torch.Tensor
     k_scale: torch.Tensor  # (B, S, H_kv) float32
     v_scale: torch.Tensor
+    use_kernel: bool = False
+
+    def k_ints(self) -> torch.Tensor:
+        return unpack_nibbles(self.k) if self.k.dtype == torch.uint8 else self.k
+
+    def v_ints(self) -> torch.Tensor:
+        return unpack_nibbles(self.v) if self.v.dtype == torch.uint8 else self.v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,16 +57,24 @@ class KVCacheConfig:
     max_seq: int
     num_kv_heads: int
     head_dim: int
-    quantized: bool = False  # int8 cache
+    quantized: bool = False  # int8/int4 cache
+    bits: int = 8  # 8 or 4 (only read when quantized)
     dtype: torch.dtype = torch.float32  # float cache dtype
 
 
 def init_cache(cfg: KVCacheConfig, device: torch.device | str) -> dict:
     shape = (cfg.num_layers, cfg.batch, cfg.max_seq, cfg.num_kv_heads, cfg.head_dim)
     if cfg.quantized:
+        if cfg.bits not in (4, 8):
+            raise ValueError(f"KV cache bits must be 4 or 8, got {cfg.bits}")
+        if cfg.bits == 4:
+            if cfg.head_dim % 2:
+                raise ValueError("int4 KV cache needs an even head_dim")
+            shape = shape[:-1] + (cfg.head_dim // 2,)
+        dt = torch.uint8 if cfg.bits == 4 else torch.int8
         cache = {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
             "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
             "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
         }
@@ -71,6 +95,31 @@ def _quantize_sym(x: torch.Tensor):
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
+
+
+def pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """Signed codes in [-8, 7], even last dim D -> uint8 (..., D/2), halves
+    layout: byte j = (d=j | d=j+D/2 << 4), offset-8 unsigned nibbles."""
+    d = q.shape[-1]
+    lo = (q[..., : d // 2].to(torch.int32) + 8).to(torch.uint8)
+    hi = (q[..., d // 2:].to(torch.int32) + 8).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_nibbles(b: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., D/2) -> int8 codes (..., D) (inverse of pack_nibbles)."""
+    lo = (b & 0xF).to(torch.int8) - 8
+    hi = (b >> 4).to(torch.int8) - 8
+    return torch.cat([lo, hi], dim=-1)
+
+
+def _quantize_sym4(x: torch.Tensor):
+    """Per (token, head) symmetric int4 (+-7 levels), packed along head_dim."""
+    x32 = x.to(torch.float32)
+    absmax = x32.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -7, 7)
+    return pack_nibbles(q), scale
 
 
 def _masked_write(buf: torch.Tensor, layer: int, rows: torch.Tensor,
@@ -94,8 +143,9 @@ def write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
     """Write new K/V rows (B, T, H_kv, D) at ``positions`` (B, T) of ``layer``,
     in place, for the (b, t) entries where ``mask`` (B, T) is set."""
     if "k_scale" in cache:
-        kq, ks = _quantize_sym(k)
-        vq, vs = _quantize_sym(v)
+        quantize = _quantize_sym4 if cache["k"].dtype == torch.uint8 else _quantize_sym
+        kq, ks = quantize(k)
+        vq, vs = quantize(v)
         for key, rows in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
             _masked_write(cache[key], layer, rows, positions, mask)
     else:
@@ -103,10 +153,11 @@ def write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
         _masked_write(cache["v"], layer, v, positions, mask)
 
 
-def read_kv_quantized(cache: dict, layer: int) -> QuantizedKV:
-    """The layer's raw int8 K/V and scales (views, no copy)."""
+def read_kv_quantized(cache: dict, layer: int, use_kernel: bool = False) -> QuantizedKV:
+    """The layer's raw int8/int4 K/V and scales (views, no copy)."""
     return QuantizedKV(k=cache["k"][layer], v=cache["v"][layer],
-                       k_scale=cache["k_scale"][layer], v_scale=cache["v_scale"][layer])
+                       k_scale=cache["k_scale"][layer], v_scale=cache["v_scale"][layer],
+                       use_kernel=use_kernel)
 
 
 def read_kv(cache: dict, layer: int, dtype: torch.dtype = torch.float32):

@@ -7,11 +7,14 @@ dual-theta RoPE (local layers use ``rope_local_base``), a sliding window on
 all but every ``sliding_pattern``-th layer, GeGLU MLP (tanh gelu), sandwich
 norms, scaled embeddings.
 
-Attention is built from einsum and softmax, as the JAX package's XLA path;
-over an int8 KV cache it is the scale-folded attend that never materializes
-a dequantized cache. Tensor, context and expert parallelism, MoE, the QuaRot
-rotations and the fused MLP kernel are not ported yet (ROADMAP.md, Queue A
-items 11 and 14, Queue B #8).
+Attention without a cache runs the flash-attention kernel where
+``Gemma3.use_flash`` allows it (``"auto"``: T >= 512 on CUDA tensors, as the
+reference arms it on its accelerator only) and einsum and softmax otherwise.
+Over an int8/int4 KV cache it is the scale-folded attend that never
+materializes a dequantized cache, or, for the engine's one-token steps with
+``fused_attention``, the int8 flash-decode kernel. Tensor, context and
+expert parallelism, MoE, the QuaRot rotations and the fused MLP kernel are
+not ported yet (ROADMAP.md, Queue A items 11 and 14, Queue B #8).
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ import math
 
 import torch
 
+from onnx_quantize_tpu_torch.engine.kv_cache import QuantizedKV
 from onnx_quantize_tpu_torch.nn.layers import Embedding, RMSNorm, apply_rope
 from onnx_quantize_tpu_torch.nn.module import Linear, Module, apply_linear
+from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode
 from onnx_quantize_tpu_torch.utils import copy_tree
 
 __all__ = ["Gemma3Config", "Gemma3", "GEMMA3_270M", "make_attention_mask",
@@ -105,6 +110,17 @@ class Gemma3Attention(Module):
         self.q_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, dtype=dt)
         self.k_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, dtype=dt)
 
+    def _flash_ok(self, use_flash, x: torch.Tensor) -> bool:
+        if use_flash is False:
+            return False
+        T = x.shape[1]
+        tileable = T % 16 == 0 and self.cfg.head_dim % 16 == 0
+        if use_flash is True:
+            return tileable
+        # "auto": the reference's rule, set on a TPU (PERF.md has the H100's
+        # kernel-vs-plain times below T = 512).
+        return tileable and T >= 512 and x.device.type == "cuda"
+
     def _qkv(self, params, x, positions):
         cfg = self.cfg
         B, T, _ = x.shape
@@ -129,23 +145,36 @@ class Gemma3Attention(Module):
         q = q * (cfg.query_pre_attn_scalar ** -0.5)
         return q, k, v
 
-    def forward(self, params, x, positions, mask, kv_write=None):
+    def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto"):
         """mask: (B, 1, T, S) additive float32 mask (0 / -1e30).
 
         ``kv_write(layer, k, v)``, from the engine, stores the new rows in the
         cache and returns what attention reads: a :class:`QuantizedKV` of the
-        int8 cache, or the float (k, v) cache.
+        int8/int4 cache, or the float (k, v) cache. Without a cache, positions
+        are the prefill layout (0..T-1) wherever the flash kernel runs; it
+        rebuilds the causal and window mask from indices.
         """
-        from onnx_quantize_tpu_torch.engine.kv_cache import QuantizedKV
-
+        cfg = self.cfg
+        B, T, _ = x.shape
+        window = None if self.is_global else cfg.sliding_window
         q, k, v = self._qkv(params, x, positions)
         if kv_write is not None:
             kv = kv_write(self.layer_idx, k, v)
+            if isinstance(kv, QuantizedKV) and kv.use_kernel:
+                # One-token step over the raw int8 cache in one kernel (T == 1).
+                out = flash_decode.flash_decode_int8(
+                    q[:, 0].to(torch.float32), kv.k, kv.k_scale, kv.v, kv.v_scale,
+                    positions[:, 0].to(torch.int32), window=window)
+                out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
+                return self.o_proj(params["o_proj"], out.to(x.dtype))
             if isinstance(kv, QuantizedKV):
-                out = _attend(q, kv.k, kv.v, mask, self.cfg, kv.k_scale, kv.v_scale)
+                out = _attend(q, kv.k_ints(), kv.v_ints(), mask, cfg, kv.k_scale, kv.v_scale)
                 return self.o_proj(params["o_proj"], out.to(x.dtype))
             k, v = kv
-        out = _attend(q, k, v, mask, self.cfg)
+        elif self._flash_ok(use_flash, x):
+            out = flash_attention.flash_attention(q, k, v, sliding_window=window)
+            return self.o_proj(params["o_proj"], out.reshape(B, T, cfg.num_heads * cfg.head_dim))
+        out = _attend(q, k, v, mask, cfg)
         return self.o_proj(params["o_proj"], out)
 
 
@@ -180,9 +209,9 @@ class Gemma3Block(Module):
         self.post_attn_norm = RMSNorm(d, eps, dtype=dt)
         self.post_ffn_norm = RMSNorm(d, eps, dtype=dt)
 
-    def forward(self, params, x, positions, mask, kv_write=None):
+    def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto"):
         h = self.input_norm(params["input_norm"], x)
-        h = self.attn(params["attn"], h, positions, mask, kv_write=kv_write)
+        h = self.attn(params["attn"], h, positions, mask, kv_write=kv_write, use_flash=use_flash)
         x = x + self.post_attn_norm(params["post_attn_norm"], h)
         h = self.pre_ffn_norm(params["pre_ffn_norm"], x)
         h = self.mlp(params["mlp"], h)
@@ -237,6 +266,9 @@ class Gemma3(Module):
         self.layers = torch.nn.ModuleList(Gemma3Block(cfg, i) for i in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dt)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, use_bias=False, dtype=dt)
+        # Attention for the full-sequence (no-cache) path: "auto" (the
+        # flash-attention kernel on CUDA at T >= 512), True, or False.
+        self.use_flash: bool | str = "auto"
 
     def init(self, generator: torch.Generator) -> dict:
         params = super().init(generator)
@@ -259,7 +291,8 @@ class Gemma3(Module):
         mask_global = make_attention_mask(cfg, positions, kv_positions, is_global=True)
         for i, block in enumerate(self.layers):
             mask = mask_global if cfg.is_global_layer(i) else mask_local
-            x = block(params[f"layers.{i}"], x, positions, mask, kv_write=kv_write)
+            x = block(params[f"layers.{i}"], x, positions, mask, kv_write=kv_write,
+                      use_flash=self.use_flash)
         return self.final_norm(params["final_norm"], x)
 
     def forward(self, params, input_ids, positions=None, kv_write=None, kv_positions=None):

@@ -1,15 +1,17 @@
 """Hopper kernel registry, shared padding, and the kernel library build.
 
-Counterpart of ``onnx_quantize_tpu/ops/kernels/__init__.py``. Kernels
+Counterpart of ``onnx_quantize_tpu/ops/kernels/__init__.py``. Matmul kernels
 register by predicate; :func:`select_kernel` returns the first whose predicate
-covers a QTensor's config. Each kernel module holds a wrapper that launches
-its CUDA kernel for CUDA tensors and runs the kernel's plain PyTorch version
-for CPU tensors.
+covers a QTensor's config. The attention kernels (``flash_attention``,
+``flash_decode``) are called by the model directly. Each kernel module holds
+a wrapper that launches its CUDA kernel for CUDA tensors and runs the
+kernel's plain PyTorch version for CPU tensors.
 
 The CUDA sources in ``onnx_quantize_tpu_torch/csrc`` are compiled at first
-use with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, cached under ``onnx_quantize_tpu_torch/_build`` by a hash of the
-sources, and loaded with ctypes. Nothing is compiled or loaded on import.
+use with ``nvcc`` for ``sm_90a`` (one nvcc process per source, all at once,
+then one link) into a shared library with a plain C interface, cached under
+``onnx_quantize_tpu_torch/_build`` by a hash of the sources, and loaded with
+ctypes. Nothing is compiled or loaded on import.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ __all__ = ["register_kernel", "select_kernel", "pad_to_multiple", "kernel_librar
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _KERNELS: list[tuple[Callable, Callable]] = []  # (predicate, kernel entry)
@@ -90,14 +92,27 @@ def build_kernel_library() -> tuple[Path, str, float]:
     if lib_path.exists():
         return lib_path, log_path.read_text() if log_path.exists() else "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    outputs = [proc.communicate()[0] for proc in procs]
+    steps = [(f"nvcc -c {src.name}", proc.returncode, out)
+             for src, proc, out in zip(sources, procs, outputs)]
+    if all(rc == 0 for _, rc, _ in steps):
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        steps.append(("nvcc -shared", link.returncode, link.stdout + link.stderr))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
+    log = "".join(f"== {name}\n{out}" for name, _, out in steps)
+    if any(rc != 0 for _, rc, _ in steps):
+        raise RuntimeError(f"kernel build failed:\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     return lib_path, log, seconds
@@ -114,6 +129,11 @@ def kernel_library() -> ctypes.CDLL:
         lib.oqt_w4_matmul.restype = i
         lib.oqt_w8_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.oqt_w8_matmul.restype = i
+        lib.oqt_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.oqt_flash_decode.restype = i
+        lib.oqt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                                            ctypes.POINTER(ctypes.c_longlong), p]
+        lib.oqt_flash_attention.restype = i
         _LIBRARY = lib
     return _LIBRARY
 
@@ -140,5 +160,10 @@ def use_four_columns(N: int, device: torch.device) -> bool:
     return N % 4 == 0 and -(-N // 128) >= sms
 
 
-# Import kernel modules so they register.
-from onnx_quantize_tpu_torch.ops.kernels import matmul_w4, matmul_w8  # noqa: E402,F401
+# Import kernel modules so they register (and load).
+from onnx_quantize_tpu_torch.ops.kernels import (  # noqa: E402,F401
+    flash_attention,
+    flash_decode,
+    matmul_w4,
+    matmul_w8,
+)

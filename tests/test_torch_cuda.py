@@ -1,5 +1,5 @@
 """The Hopper kernels on a CUDA device: each against its plain version, and a
-small engine on the card against the same engine on the CPU.
+small model and engine on the card against the same on the CPU.
 
 Every test here needs a card and skips without one. The card's machine has
 no JAX, so this file imports only torch, numpy and the port, and runs there
@@ -20,7 +20,7 @@ from onnx_quantize_tpu_torch.engine import InferenceEngine, prepare_kernel_scale
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
 from onnx_quantize_tpu_torch.nn.qtensor import make_qtensor
 from onnx_quantize_tpu_torch.ops import quantized_matmul
-from onnx_quantize_tpu_torch.ops.kernels import matmul_w4, matmul_w8
+from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode, matmul_w4, matmul_w8
 from onnx_quantize_tpu_torch.ops.reference import _qdq_matmul
 from onnx_quantize_tpu_torch.plan import resolve_group_size
 from onnx_quantize_tpu_torch.utils import tree_map
@@ -129,3 +129,119 @@ def test_kernel_bf16_stream_engine_runs_on_card():
     out = eng.generate([[1, 2, 3], [4, 5, 6, 7, 8]], max_new_tokens=5)
     assert [len(o) for o in out] == [5, 5]
     assert all(0 <= t < cfg.vocab_size for o in out for t in o)
+
+
+# (B, S, Hq, Hkv, D, window, pos): ragged pos with 0, tile edges and the
+# pos = S sentinel of an inactive slot; a window smaller than a tile; one
+# query head per KV head; two KV heads; D = 128; S = 128.
+FD_CASES = [
+    (4, 512, 4, 1, 256, None, [0, 63, 64, 512]),
+    (4, 512, 4, 1, 256, 40, [0, 39, 300, 512]),
+    (3, 128, 2, 2, 128, None, [127, 0, 128]),
+    (2, 256, 8, 2, 128, 16, [255, 17]),
+    (2, 128, 4, 2, 64, 130, [5, 128]),
+]
+
+
+def _fd_inputs(B, S, Hq, Hkv, D, pos, seed=0):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, Hq, D)) / 16).astype(np.float32)
+    kv = [rng.integers(-127, 128, (B, S, Hkv, D)).astype(np.int8) for _ in range(2)]
+    scales = [rng.uniform(1e-3, 3e-2, (B, S, Hkv)).astype(np.float32) for _ in range(2)]
+    args = (q, kv[0], scales[0], kv[1], scales[1], np.asarray(pos, np.int32))
+    return [torch.from_numpy(a).cuda() for a in args]
+
+
+@pytest.mark.parametrize("case", FD_CASES,
+                         ids=lambda c: f"B{c[0]}-S{c[1]}-{c[2]}on{c[3]}-D{c[4]}-w{c[5]}")
+def test_flash_decode_kernel_matches_plain(case):
+    """Kernel within 1e-4 of max|out| of its plain version: the same float32
+    products, summed in another order; finite at the pos = S sentinel."""
+    _require_cuda()
+    B, S, Hq, Hkv, D, window, pos = case
+    args = _fd_inputs(B, S, Hq, Hkv, D, pos)
+    before = flash_decode.launches
+    got = flash_decode.flash_decode_int8(*args, window=window)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    want = flash_decode.flash_decode_int8_reference(*args, window=window)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# (B, T, Hq, Hkv, D, window, dtype): ragged T tiles, GQA, a window smaller
+# than a tile, every head_dim the kernel is built for.
+FA_CASES = [
+    (2, 48, 2, 2, 128, None, torch.float32),
+    (1, 130, 4, 1, 256, 40, torch.float32),
+    (2, 100, 4, 2, 64, 7, torch.bfloat16),
+    (1, 256, 4, 1, 256, None, torch.bfloat16),
+    (1, 70, 2, 1, 32, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize(
+    "case", FA_CASES,
+    ids=lambda c: f"B{c[0]}-T{c[1]}-{c[2]}on{c[3]}-D{c[4]}-w{c[5]}-{str(c[6])[6:]}")
+def test_flash_attention_kernel_matches_plain(case):
+    """float32: within 1e-4 of max|out| (summation order). bfloat16: within
+    1e-2 of max|out| (p is rounded to bf16 against the running max in the
+    kernel and the row max in the plain version, and the output rounds to
+    bf16). v is read through the strides of a fused-projection slice."""
+    _require_cuda()
+    B, T, Hq, Hkv, D, window, dtype = case
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((B, T, Hq, D)) / np.sqrt(D)).to("cuda", dtype)
+    kv = torch.from_numpy(rng.standard_normal((B, T, 2 * Hkv * D))).to("cuda", dtype)
+    k = kv[..., :Hkv * D].reshape(B, T, Hkv, D).contiguous()
+    v = kv[..., Hkv * D:].reshape(B, T, Hkv, D)  # strided view
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, sliding_window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention.flash_attention_reference(q, k, v, sliding_window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+TINY128 = dict(hidden_size=64, num_heads=2, num_kv_heads=1, head_dim=128, sliding_window=16,
+               sliding_pattern=2)
+
+
+def test_attention_kernels_in_model_and_engine_match_cpu():
+    """A tiny float32 model on the card: use_flash=True launches one flash
+    attention per layer and matches the CPU's einsum path within 1e-4 of the
+    largest logit; a fused-attention engine launches one flash decode per
+    layer per one-token forward and matches the CPU's unfused engine within
+    JAX's own bar (atol 2e-4, rtol 1e-4), greedy tokens equal."""
+    _require_cuda()
+    model = Gemma3(Gemma3Config.tiny(**TINY128))
+    params = model.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to("cuda"), params)
+    ids = np.random.default_rng(0).integers(0, 256, (2, 48)).astype(np.int32)
+    model.use_flash = True
+    before = flash_attention.launches
+    flash = model(on_card, torch.from_numpy(ids).long().cuda())
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + model.cfg.num_layers
+    model.use_flash = False
+    dense = model(params, torch.from_numpy(ids).long())
+    model.use_flash = "auto"
+    assert (flash.cpu() - dense).abs().max().item() <= 1e-4 * dense.abs().max().item()
+
+    def run(p, fused):
+        eng = InferenceEngine(model, p, max_batch=2, max_seq=128, kv_quant=True,
+                              fused_attention=fused)
+        cache, logits = eng.prefill(eng.new_cache(), ids[:, :20], np.array([20, 11], np.int32))
+        before = flash_decode.launches
+        cache, toks = eng.decode_multi(cache, torch.argmax(logits, -1), steps=6)
+        _, last = eng.decode(cache, toks[:, -1])
+        return toks.cpu(), last.float().cpu(), flash_decode.launches - before
+
+    card_toks, card_logits, launched = run(on_card, True)
+    cpu_toks, cpu_logits, _ = run(params, False)
+    assert launched == 7 * model.cfg.num_layers
+    assert torch.equal(card_toks, cpu_toks)
+    np.testing.assert_allclose(card_logits.numpy(), cpu_logits.numpy(), atol=2e-4, rtol=1e-4)

@@ -35,13 +35,16 @@ def test_port_source_imports_no_jax(path):
 
 def test_port_sources_found():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "gemma3.py", "matmul_w4.py", "matmul_w8.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "gemma3.py", "matmul_w4.py", "matmul_w8.py", "flash_attention.py",
+            "flash_decode.py", "perplexity.py", "chip_smoke.py"} <= names
 
 
 def test_importing_the_port_builds_no_kernel():
     import onnx_quantize_tpu_torch.engine  # noqa: F401
     import onnx_quantize_tpu_torch.models  # noqa: F401
+    import onnx_quantize_tpu_torch.tools  # noqa: F401
     from onnx_quantize_tpu_torch.ops import kernels
 
     assert kernels._LIBRARY is None
-    assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {"matmul_w4.cu", "matmul_w8.cu"}
+    assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {
+        "matmul_w4.cu", "matmul_w8.cu", "flash_attention.cu", "flash_decode.cu"}
