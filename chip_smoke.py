@@ -11,9 +11,14 @@ Phases (any failed check exits non-zero; each prints its seconds):
    and turns TF32 off for float32 matmuls and convolutions.
 2. Build: compiles the Hopper kernels from ``onnx_quantize_tpu_torch/csrc``.
 3. Kernels: each kernel against its plain PyTorch version on the card, timed
-   with CUDA events. W4/W8 at the main path's shapes (a decode step, M=32,
-   and a 32x128 prefill, M=4096) and at odd shapes (ragged M and N, a pad
-   group, signed and unsigned weights), in bfloat16 and float32. Flash
+   with CUDA events. W4/W8 and W4A8/W8A8 at the main path's shapes (a decode
+   step, M=32, and a 32x128 prefill, M=4096) and at odd shapes (ragged M and
+   N, a pad group, signed and unsigned weights, uint8 shifted by 128, group
+   tiles, a tile past 1024 rows), in bfloat16 and float32, and the lm_head
+   at a scoring window's M=2048. Yardsticks the port never calls, on the
+   same operands: ``torch._weight_int4pack_mm`` (W4 body sites),
+   ``torch._weight_int8pack_mm`` (W8 lm_head) and ``torch._int_mm`` (W8A8
+   lm_head). Flash
    decode at B=32, S=4096, 4 query heads on 1 KV head of 256, ragged
    positions (0, tile edges, the pos = S sentinel), window 512 and none, odd
    shapes, timed at B=32, S=1024, pos=640. Flash attention at T=S=2048 and
@@ -24,23 +29,32 @@ Phases (any failed check exits non-zero; each prints its seconds):
    greedy decode steps, then ``generate`` on 3 ragged prompts. Checks the
    kernel launch counts, finite logits, tokens in range, and prefill logits
    against the same engine with the kernels swapped for their plain versions.
+   Then the A8 arm: ``convert_to_w4a8`` of the same tree (W4A8 on every body
+   site, W8A8 on the lm_head), through the same sequence and checks, which
+   for it require logits and greedy tokens equal to the plain run's.
 5. Rates: decode tokens/s for the quantized arm, the same with flash decode
-   (``fused_attention=True``) and an unquantized bf16 arm, by the slope
-   between two step counts timed with CUDA events; the arms take turns, and
-   each reports the median of 5 samples.
+   (``fused_attention=True``), the W4A8 arm and an unquantized bf16 arm, by
+   the slope between two step counts timed with CUDA events; the arms take
+   turns, and each reports the median of 5 samples.
 6. Window scoring: ``perplexity_from_tokens`` of the phase-4 model over a
    seeded 4096-token stream (windows of 2048, stride 512: 5 windows), which
    runs flash attention in every layer. Checks the launch counts per window,
    a finite result, and the mean NLL against the same run with every kernel
-   swapped for its plain version; prints the bf16 model's ppl beside it.
+   swapped for its plain version, for the W4 and the A8 model; for the A8
+   model also an equal ppl with only its two matmul kernels swapped; prints
+   the bf16 model's ppl beside them.
 7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 640 tokens through
    an engine with an int8 cache and ``fused_attention=True`` (flash decode in
    every layer of every one-token forward, past the 512-token window).
    Checks the launch counts and the NLL against ``fused_attention=False``;
    prints ``score_ppl`` for the float, int8 and int4 caches and steps/s.
 
-The line before the last is a JSON object of per-kernel results; the last is
-``{"ok": true, "device": {...}}``.
+The run ends by counting the kernels the activation quantizer and one whole
+site launch, and by profiling decode steps of the W4 and the A8 arm
+(``torch.profiler``: launches, device busy time, idle share). The line
+before the last is a JSON object
+of per-kernel results, each with the least time the card could take for the
+same work (``bound_ms``); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +74,12 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
+
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): the least
+# time for a kernel's work is the larger of its bytes over the memory rate
+# and its operations over the peak for their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "float32": 67e12}
 
 
 class SmokeFailure(RuntimeError):
@@ -98,33 +119,102 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 # -- phase 3: kernels against their plain versions -----------------------------
 
-def random_qtensor(K: int, N: int, dtype: str, group_size: int, symmetric: bool, gen):
-    """An RTN-quantized random (K, N) weight on the card, scales baked as the
-    engine bakes them."""
+def random_qtensor(K: int, N: int, dtype: str, group_size: int, symmetric: bool, gen,
+                   a8: bool = False):
+    """An RTN-quantized random (K, N) weight on the card (``a8``: with dynamic
+    int8 activations), scales baked as the engine bakes them."""
     from onnx_quantize_tpu_torch.algorithms import rtn_quantize
     from onnx_quantize_tpu_torch.core.qconfig import QWeightArgs
     from onnx_quantize_tpu_torch.engine import prepare_kernel_scales
     from onnx_quantize_tpu_torch.nn.qtensor import make_qtensor
+    from onnx_quantize_tpu_torch.ops import convert_to_w4a8
     from onnx_quantize_tpu_torch.plan import resolve_group_size
 
     args = QWeightArgs(dtype=dtype, group_size=group_size, symmetric=symmetric)
     gs = resolve_group_size(K, group_size) or -1
     w = 0.1 * torch.randn((K, N), generator=gen, device="cuda")
     q, s, z = rtn_quantize(w, args.dtype, args.strategy, gs, symmetric, False)
-    qt = make_qtensor(q, s, z, quant_type=args.dtype, strategy=args.strategy, group_size=gs,
-                      symmetric=symmetric, reduce_range=False)
-    return prepare_kernel_scales({"w": qt})["w"]
+    tree = {"w": make_qtensor(q, s, z, quant_type=args.dtype, strategy=args.strategy,
+                              group_size=gs, symmetric=symmetric, reduce_range=False)}
+    return prepare_kernel_scales(convert_to_w4a8(tree) if a8 else tree)["w"]
 
 
-def kernel_operands(qt, x):
-    """(wrapper, plain version, operands, keyword args) for ``x @ dequant(qt)``."""
-    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4, matmul_w8
+def kernel_operands(kernel: str, qt, x):
+    """(wrapper, plain version, operands, keyword args) of ``kernel`` for
+    ``x @ dequant(qt)`` (the A8 kernels take x quantized to int8)."""
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4, matmul_w4a8, matmul_w8, matmul_w8a8
 
-    if qt.meta.packed:
-        return (matmul_w4.w4_matmul, matmul_w4.w4_dequant_matmul_plain,
-                *matmul_w4.w4_operands(x, qt))
-    return matmul_w8.w8_matmul, matmul_w8.w8_dequant_matmul_plain, *matmul_w8.w8_operands(x, qt)
+    wrapper, plain, operands = {
+        "w4": (matmul_w4.w4_matmul, matmul_w4.w4_dequant_matmul_plain, matmul_w4.w4_operands),
+        "w8": (matmul_w8.w8_matmul, matmul_w8.w8_dequant_matmul_plain, matmul_w8.w8_operands),
+        "w4a8": (matmul_w4a8.w4a8_matmul, matmul_w4a8.w4a8_matmul_plain,
+                 matmul_w4a8.w4a8_operands),
+        "w8a8": (matmul_w8a8.w8a8_matmul, matmul_w8a8.w8a8_matmul_plain,
+                 matmul_w8a8.w8a8_operands),
+    }[kernel]
+    return (wrapper, plain, *operands(x, qt))
 
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
+    """(least milliseconds, what bounds them) for work of ``bytes_moved`` bytes
+    and ``ops`` operations of type ``kind`` on the card."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int_mm_ms(x_q, data) -> tuple[float, torch.Tensor]:
+    """Milliseconds of ``torch._int_mm`` on the W8A8 kernel's int8 operands (a
+    yardstick: the port never calls it), and its int32 product."""
+    return cuda_time_ms(lambda: torch._int_mm(x_q, data), 50), torch._int_mm(x_q, data)
+
+
+def int4pack_ms(x, qt) -> tuple[float, torch.Tensor]:
+    """Milliseconds and bf16 output of ``torch._weight_int4pack_mm`` (a
+    yardstick: the port never calls it) for ``x @ dequant(qt)``, a packed
+    uint4 weight with baked scales. Its dequant is ``(q - 8) * s + zero``,
+    so ``zero = (8 - zp) * s``; scales and zeros are held in bf16."""
+    K, N = qt.meta.shape
+    gs = qt.meta.pack_group
+    data = qt.data.reshape(-1, gs, N)
+    codes = torch.stack([data & 0x0F, data >> 4], dim=1).reshape(-1, N)[:K]  # (K, N)
+    s, z = (t.reshape(-1, N)[:K // gs] for t in (qt.scale, qt.zero_point))
+    w = codes.t().to(torch.int32)  # (N, K)
+    packed = torch._convert_weight_to_int4pack(
+        ((w[:, ::2] << 4) | w[:, 1::2]).to(torch.uint8).contiguous(), 8)
+    s_and_z = torch.stack([s, (8.0 - z) * s], dim=-1).to(torch.bfloat16).contiguous()
+    xb = x.to(torch.bfloat16)
+
+    def call():
+        return torch._weight_int4pack_mm(xb, packed, gs, s_and_z)
+
+    return cuda_time_ms(call, 50), call()
+
+
+def int8pack_ms(x, qt) -> tuple[float, torch.Tensor]:
+    """Milliseconds and bf16 output of ``torch._weight_int8pack_mm`` (a
+    yardstick: the port never calls it) for ``x @ dequant(qt)``, a symmetric
+    int8 per-channel weight; the scales are held in bf16."""
+    from onnx_quantize_tpu_torch.ops.kernels.matmul_w8 import w8_scale_rows
+
+    _, scale_rows, _ = w8_scale_rows(qt)
+    w = qt.data.t().contiguous()  # (N, K) int8
+    scales = scale_rows.reshape(-1).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+
+    def call():
+        return torch._weight_int8pack_mm(xb, w, scales)
+
+    return cuda_time_ms(call, 50), call()
+
+
+# The bf16 yardsticks of the weight-only kernels, timed at M=32.
+BF16_LIBRARY = {"w4": ("_weight_int4pack_mm", int4pack_ms),
+                "w8": ("_weight_int8pack_mm", int8pack_ms)}
 
 # name, kernel, K, N, dtype, group_size, symmetric, rows of M, timed
 KERNEL_CASES = [
@@ -140,24 +230,51 @@ KERNEL_CASES = [
     ("odd_w8_i8_n40004", "w8", 640, 40004, "int8", -1, True, (5, 33), False),
     ("odd_w8_u8_asym_n1000", "w8", 640, 1000, "uint8", -1, False, (7, 65), False),
     ("odd_w8_u8_g128", "w8", 640, 999, "uint8", 128, False, (31,), False),
+    # The A8 arm's sites (dynamic int8 activations): W4A8 on the body, W8A8
+    # on the lm_head, also at a scoring window's M=2048; then odd shapes: a
+    # pad group with a ragged N, int4 with ragged M, uint8 symmetric (shifted
+    # by 128), group tiles, 4 columns per thread at M > 32 with a ragged
+    # edge, and a tile of 1100 rows (past the plain version's exact chunks).
+    ("qkv", "w4a8", 640, 1536, "uint4", 128, False, (32, 4096), True),
+    ("o", "w4a8", 1024, 640, "uint4", 128, False, (32, 4096), True),
+    ("gate_up", "w4a8", 640, 4096, "uint4", 128, False, (32, 4096), True),
+    ("down", "w4a8", 2048, 640, "uint4", 128, False, (32, 4096), True),
+    ("lm_head", "w8a8", 640, 262144, "int8", -1, True, (32, 2048), True),
+    ("odd_w4a8_u4_k320_g64_n200", "w4a8", 320, 200, "uint4", 64, False, (5, 37), False),
+    ("odd_w4a8_i4_sym_n20000", "w4a8", 640, 20000, "int4", 128, True, (3, 70), False),
+    ("odd_w8a8_u8_sym_n1000", "w8a8", 640, 1000, "uint8", -1, True, (7, 65), False),
+    ("odd_w8a8_i8_g128_n999", "w8a8", 640, 999, "int8", 128, True, (31,), False),
+    ("odd_w8a8_i8_n40004", "w8a8", 640, 40004, "int8", -1, True, (5, 33), False),
+    ("odd_w8a8_i8_k1100", "w8a8", 1100, 256, "int8", -1, True, (9, 40), False),
 ]
 
 # Why these tolerances: kernel and plain version read the same inputs and form
 # the same float32 products (a bf16 input times a small integer is exact in
 # float32), so they differ only in the order of float32 sums over K <= 2048
 # terms; 1e-4 of the output's largest magnitude bounds that for either dtype.
+# The A8 kernels' integer partials are exact on both sides (int32 in the
+# kernel, float32 below 2^24 in the plain version), and their float32
+# epilogue runs the plain version's rounded operations in its order, so they
+# agree bit for bit; the same 1e-4 is their bar.
 REL_TOL = 1e-4
+# The operands' type for the operation peak: bf16 x for W4/W8, int8 for A8.
+MATMUL_KIND = {"w4": "bf16", "w8": "bf16", "w4a8": "int8", "w8a8": "int8"}
+# The bf16 yardsticks (_weight_int4pack_mm, _weight_int8pack_mm) hold scales,
+# zeros and the output in bf16 (2^-9 relative each), where the kernels keep
+# float32: 2e-2 of the largest output bounds that, and a wrong layout or
+# zero-point convention misses it by far.
+LIBRARY_BF16_REL_TOL = 2e-2
 
 
 def run_kernel_checks(gen) -> dict:
-    results = {"w4": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0},
-               "w8": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+    results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
+                   "library_ms": None} for k in MATMUL_KIND}
     for name, kernel, K, N, dtype, gs, sym, rows, timed in KERNEL_CASES:
-        qt = random_qtensor(K, N, dtype, gs, sym, gen)
+        qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"))
         for M in rows:
             for xdt in (torch.bfloat16, torch.float32):
                 x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
-                wrapper, plain, ops, kw = kernel_operands(qt, x)
+                wrapper, plain, ops, kw = kernel_operands(kernel, qt, x)
                 y = wrapper(*ops, **kw)
                 ref = plain(*ops, **kw)
                 torch.cuda.synchronize()
@@ -177,7 +294,35 @@ def run_kernel_checks(gen) -> dict:
                     if M == 32:  # one decode step's shapes
                         res["ms"] += ms
                         res["plain_ms"] += plain_ms
+                        res["bytes"] += nbytes(*ops, y)
+                        res["ops"] += 2 * M * K * N
+                    if kernel in ("w4a8", "w8a8") and M == 32:
+                        # The plain-torch activation quantizer each A8 site runs first.
+                        from onnx_quantize_tpu_torch.ops.kernels.matmul_w4a8 import (
+                            quantize_activation_int8,
+                        )
+
+                        q_ms = cuda_time_ms(lambda: quantize_activation_int8(x), iters)
+                        line += f" quantizer_ms={q_ms:.4f}"
+                    if kernel == "w8a8" and M == 32:
+                        res["library_ms"], ref32 = int_mm_ms(ops[0], ops[2])
+                        lib = ref32.float() * (ops[1] * ops[3])  # scaled as the kernel does
+                        lib_err = (lib - y).abs().max().item()
+                        check(lib_err <= REL_TOL * scale,
+                              f"{name}: _int_mm disagrees by {lib_err:.3e}")
+                        line += f" int_mm_ms={res['library_ms']:.4f} int_mm_err={lib_err:.3e}"
+                    if kernel in BF16_LIBRARY and M == 32:
+                        op, lib_fn = BF16_LIBRARY[kernel]
+                        lib_ms, lib = lib_fn(x, qt)
+                        lib_err = (lib.float() - y).abs().max().item()
+                        check(lib_err <= LIBRARY_BF16_REL_TOL * scale,
+                              f"{name}: {op} disagrees by {lib_err:.3e}")
+                        res["library_ms"] = (res["library_ms"] or 0.0) + lib_ms
+                        line += f" {op}_ms={lib_ms:.4f} {op}_err={lib_err:.3e}"
                 print(line, flush=True)
+    for kernel, res in results.items():
+        res["bound_ms"], res["bound_by"] = bound(res.pop("bytes"), res.pop("ops"),
+                                                 MATMUL_KIND[kernel])
     return results
 
 
@@ -218,6 +363,37 @@ def check_attention(name, got, want, dtype) -> float:
     return err
 
 
+def live_rows(pos, S: int, window) -> int:
+    """Cache rows flash decode reads over the batch: [max(pos - window + 1, 0),
+    min(pos, S - 1)] for each sequence (this run's positions)."""
+    last = pos.long().clamp(max=S - 1)
+    first = (pos.long() - window + 1).clamp(min=0) if window else torch.zeros_like(last)
+    return int((last - first + 1).clamp(min=0).sum().item())
+
+
+def causal_pairs(T: int, window) -> int:
+    """(query, key) pairs a causal attention over T tokens computes."""
+    return sum(min(t + 1, window or T) for t in range(T))
+
+
+def sdpa_ms(q, k, v, window) -> float:
+    """Milliseconds of ``scaled_dot_product_attention`` on flash attention's
+    inputs (a yardstick: the port never calls it); q is pre-scaled, so scale
+    1. A window is a banded causal mask."""
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # (B, H, T, D)
+    T = q.shape[1]
+    mask = None
+    if window:
+        i = torch.arange(T, device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=mask is None, scale=1.0, enable_gqa=True)
+
+    return cuda_time_ms(call, 5)
+
+
 def run_attention_checks(gen) -> dict:
     from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode
 
@@ -244,6 +420,14 @@ def run_attention_checks(gen) -> dict:
     # One decode step's shapes: B=32 sequences at position 640 of a 1024 cache.
     args = fd_inputs(32, 1024, 4, 1, 256, [640] * 32, gen)
     times = {}
+    work = [0, 0]  # bytes and float32 operations of one step
+    for window, layers in ((None, GLOBAL_LAYERS), (512, LOCAL_LAYERS)):
+        q, k, ks, v, vs, pos = args
+        rows = live_rows(pos, k.shape[1], window)
+        per_row = nbytes(k[0, 0], v[0, 0], ks[0, 0], vs[0, 0])
+        out = fd.flash_decode_int8(*args, window=window)
+        work[0] += layers * (nbytes(q, pos, out) + rows * per_row)
+        work[1] += layers * 4 * rows * q.shape[1] * q.shape[2]  # QK and PV, G heads a row
     for window in (None, 512):
         times[window] = (cuda_time_ms(lambda: fd.flash_decode_int8(*args, window=window), 50),
                          cuda_time_ms(lambda: fd.flash_decode_int8_reference(*args, window=window),
@@ -254,7 +438,10 @@ def run_attention_checks(gen) -> dict:
         "max_abs_err": err_max,
         # Per decode step of the 270M model: 3 global and 15 local layers.
         "ms": GLOBAL_LAYERS * times[None][0] + LOCAL_LAYERS * times[512][0],
-        "plain_ms": GLOBAL_LAYERS * times[None][1] + LOCAL_LAYERS * times[512][1]}
+        "plain_ms": GLOBAL_LAYERS * times[None][1] + LOCAL_LAYERS * times[512][1],
+        "library_ms": None}  # no single PyTorch call attends over an int8 cache
+    results["flash_decode"]["bound_ms"], results["flash_decode"]["bound_by"] = bound(
+        *work, "float32")
 
     # Flash attention: the window shapes in bf16, then an odd float32 shape.
     fa_cases = [("fa_T2048_g4_D256", (1, 2048, 4, 1, 256, torch.bfloat16)),
@@ -262,6 +449,8 @@ def run_attention_checks(gen) -> dict:
                 ("fa_odd_B2_T48_mha_D128_f32", (2, 48, 2, 2, 128, torch.float32))]
     err_max = 0.0
     times = {}
+    full = "fa_T2048_g4_D256"
+    work, library = [0, 0], 0.0  # one window's bytes and bf16 operations, SDPA's time
     for name, shape in fa_cases:
         args = fa_inputs(*shape, gen)
         for window in (512, None):
@@ -278,33 +467,51 @@ def run_attention_checks(gen) -> dict:
                         *args, sliding_window=window), 5))
                 line += (f" kernel_ms={times[name, window][0]:.4f} "
                          f"plain_ms={times[name, window][1]:.4f}")
+            if name == full:
+                layers = LOCAL_LAYERS if window else GLOBAL_LAYERS
+                q = args[0]
+                work[0] += layers * nbytes(*args, got)
+                work[1] += layers * 4 * q.shape[0] * q.shape[2] * q.shape[3] * causal_pairs(
+                    q.shape[1], window)
+                sdpa = sdpa_ms(*args, window)
+                library += layers * sdpa
+                line += f" sdpa_ms={sdpa:.4f}"
             print(line, flush=True)
-    full = "fa_T2048_g4_D256"
     results["flash_attention"] = {
         "max_abs_err": err_max,
         # Per 2048-token scoring window of the 270M model: 3 global, 15 local layers.
         "ms": GLOBAL_LAYERS * times[full, None][0] + LOCAL_LAYERS * times[full, 512][0],
-        "plain_ms": GLOBAL_LAYERS * times[full, None][1] + LOCAL_LAYERS * times[full, 512][1]}
+        "plain_ms": GLOBAL_LAYERS * times[full, None][1] + LOCAL_LAYERS * times[full, 512][1],
+        "library_ms": library}
+    results["flash_attention"]["bound_ms"], results["flash_attention"]["bound_by"] = bound(
+        *work, "bf16")
     return results
 
 
 # -- phase 4: the main path ------------------------------------------------------
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Swap the kernel wrappers for their plain versions (reference run only:
-    the package itself never routes a CUDA tensor to a plain version)."""
+def plain_kernels(only=None):
+    """Swap the kernel wrappers (those of the ``only`` modules, or all) for
+    their plain versions (reference run only: the package itself never
+    routes a CUDA tensor to a plain version)."""
     from onnx_quantize_tpu_torch.ops.kernels import (
         flash_attention,
         flash_decode,
         matmul_w4,
+        matmul_w4a8,
         matmul_w8,
+        matmul_w8a8,
     )
 
     swaps = [(matmul_w4, "w4_matmul", matmul_w4.w4_dequant_matmul_plain),
              (matmul_w8, "w8_matmul", matmul_w8.w8_dequant_matmul_plain),
+             (matmul_w4a8, "w4a8_matmul", matmul_w4a8.w4a8_matmul_plain),
+             (matmul_w8a8, "w8a8_matmul", matmul_w8a8.w8a8_matmul_plain),
              (flash_attention, "flash_attention", flash_attention.flash_attention_reference),
              (flash_decode, "flash_decode_int8", flash_decode.flash_decode_int8_reference)]
+    if only is not None:
+        swaps = [swap for swap in swaps if swap[0] in only]
     saved = [getattr(module, name) for module, name, _ in swaps]
     for module, name, plain in swaps:
         setattr(module, name, plain)
@@ -335,9 +542,12 @@ def build_models():
     return model, fuse_gemma3_projections(qparams), fuse_gemma3_projections(params)
 
 
-def run_main_path(model, qparams) -> dict:
+def run_main_path(model, qparams, body: str, head: str):
+    """Prefill, greedy decode and generate through ``body`` kernels on every
+    transformer site and the ``head`` kernel on the lm_head, and no other
+    kernel; prefill logits against the plain-version run. Returns (launches,
+    prefill logits)."""
     from onnx_quantize_tpu_torch.engine import InferenceEngine
-    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4, matmul_w8
 
     cfg = model.cfg
     B, T, steps = 32, 128, 64
@@ -350,34 +560,39 @@ def run_main_path(model, qparams) -> dict:
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (5, 77, 128)]
     new_tokens = 8
 
-    def counts():
-        return matmul_w4.launches, matmul_w8.launches
+    def expect(n_steps: int) -> dict:
+        want = {name: 0 for name in kernel_modules()}
+        want[body], want[head] = sites_per_step * n_steps, n_steps
+        return want
+
+    def since(before: dict) -> dict:
+        return {k: v - before[k] for k, v in kernel_counts().items()}
 
     torch.cuda.synchronize()
-    matmul_w4.launches = matmul_w8.launches = 0
+    reset_counts()
     cache, logits = engine.prefill(engine.new_cache(), ids, lengths)
-    after_prefill = counts()
+    after_prefill = kernel_counts()
     first = torch.argmax(logits, dim=-1)
     cache, generated = engine.decode_multi(cache, first, steps=steps)
-    after_decode = counts()
+    decode_launches = since(after_prefill)
+    after_decode = kernel_counts()
     outputs = engine.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
-    total = counts()
+    gen_launches = since(after_decode)
+    total = kernel_counts()
 
-    check(after_prefill == (sites_per_step, 1),
-          f"prefill launched {after_prefill} (W4, W8) kernels, expected ({sites_per_step}, 1)")
-    decode_launches = (after_decode[0] - after_prefill[0], after_decode[1] - after_prefill[1])
-    check(decode_launches == (sites_per_step * steps, steps),
-          f"{steps} decode steps launched {decode_launches} (W4, W8) kernels, expected "
-          f"{sites_per_step} W4 and 1 W8 per step")
+    check(after_prefill == expect(1), f"prefill launched {after_prefill}, expected "
+          f"{sites_per_step} {body} and 1 {head} kernels and no other")
+    check(decode_launches == expect(steps), f"{steps} decode steps launched {decode_launches}, "
+          f"expected {sites_per_step} {body} and 1 {head} per step and no other")
     gen_steps = new_tokens  # one prefill + (new_tokens - 1) decode steps
-    check(total[0] - after_decode[0] == sites_per_step * gen_steps
-          and total[1] - after_decode[1] == gen_steps,
-          f"generate launched {(total[0] - after_decode[0], total[1] - after_decode[1])}")
-    print(f"main path launches: prefill {after_prefill}, decode x{steps} {decode_launches}, "
-          f"generate {(total[0] - after_decode[0], total[1] - after_decode[1])}, "
-          f"per decode step (W4, W8) = ({decode_launches[0] // steps}, "
-          f"{decode_launches[1] // steps})", flush=True)
+    check(gen_launches == expect(gen_steps), f"generate launched {gen_launches}")
+    print(f"main path ({body} body, {head} head) launches: prefill "
+          f"({after_prefill[body]}, {after_prefill[head]}), decode x{steps} "
+          f"({decode_launches[body]}, {decode_launches[head]}), generate "
+          f"({gen_launches[body]}, {gen_launches[head]}), per decode step "
+          f"({decode_launches[body] // steps}, {decode_launches[head] // steps}); "
+          f"other kernels none", flush=True)
 
     check(tuple(logits.shape) == (B, cfg.vocab_size), f"prefill logits shape {logits.shape}")
     check(bool(torch.isfinite(logits.float()).all()), "prefill logits not finite")
@@ -393,20 +608,28 @@ def run_main_path(model, qparams) -> dict:
         plain_cache, plain_logits = engine.prefill(engine.new_cache(), ids, lengths)
         _, plain_tokens = engine.decode_multi(plain_cache, first, steps=cmp_steps)
     torch.cuda.synchronize()
-    check(counts() == total, "the plain-version run launched kernels")
+    check(kernel_counts() == total, "the plain-version run launched kernels")
     diff = (logits.float() - plain_logits.float()).abs()
     peak = plain_logits.float().abs().max().item()
-    # bf16 stream: kernel and plain site outputs differ by float32 summation
+    # bf16 stream: W4/W8 and their plain versions differ by float32 summation
     # order, which can flip a bf16 rounding (2^-8 relative) of a site output;
     # such flips pass through 18 layers. 5% of the largest logit bounds that.
-    tol = 0.05 * peak
-    print(f"prefill logits kernel vs plain: max_abs_diff={diff.max().item():.4e} "
+    # The A8 kernels agree with their plain versions bit for bit (else a
+    # flipped bf16 rounding moves int8 activation codes of later sites and
+    # compounds: 7.6% of the largest logit when they summed in another
+    # order), and nothing else on this path differs between the two runs, so
+    # their arm must match exactly: equal logits and equal greedy tokens.
+    exact = body == "w4a8"
+    tol = 1e-6 * peak if exact else 0.05 * peak
+    print(f"prefill logits kernel vs plain ({body}): max_abs_diff={diff.max().item():.4e} "
           f"mean_abs_diff={diff.mean().item():.4e} max|logit|={peak:.4e} tol={tol:.4e}",
           flush=True)
     check(diff.max().item() <= tol, "prefill logits through the kernels disagree with plain")
     agree = (generated[:, :cmp_steps] == plain_tokens).float().mean().item()
-    print(f"greedy tokens equal over {cmp_steps} steps, kernel vs plain: {agree:.4f}", flush=True)
-    return {"w4": total[0], "w8": total[1]}
+    print(f"greedy tokens equal over {cmp_steps} steps, kernel vs plain ({body}): {agree:.4f}",
+          flush=True)
+    check(not exact or agree == 1.0, f"{body} greedy tokens differ from the plain run's")
+    return total, logits
 
 
 # -- phase 5: decode rates -------------------------------------------------------
@@ -451,11 +674,13 @@ def kernel_modules() -> dict:
         flash_attention,
         flash_decode,
         matmul_w4,
+        matmul_w4a8,
         matmul_w8,
+        matmul_w8a8,
     )
 
-    return {"w4": matmul_w4, "w8": matmul_w8, "flash_attention": flash_attention,
-            "flash_decode": flash_decode}
+    return {"w4": matmul_w4, "w8": matmul_w8, "w4a8": matmul_w4a8, "w8a8": matmul_w8a8,
+            "flash_attention": flash_attention, "flash_decode": flash_decode}
 
 
 def kernel_counts() -> dict:
@@ -465,6 +690,56 @@ def kernel_counts() -> dict:
 def reset_counts() -> None:
     for module in kernel_modules().values():
         module.launches = 0
+
+
+def count_launches(fn) -> tuple[int, list[str]]:
+    """(count, names) of the device operations one ``fn()`` call launches,
+    from ``torch.profiler``, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(names), [n[:40] for n in names]
+
+
+MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w8)_kernel\b")
+
+
+def profile_decode(model, params, steps: int = 4) -> dict:
+    """Per decode step of a prefilled B=32 engine (int8 KV cache, bf16), over
+    ``steps`` greedy steps under ``torch.profiler``: device operations
+    launched, device busy ms (their summed durations; one stream), wall ms
+    (profiled, so longer than unprofiled), the idle share 1 - busy/wall, and
+    the busy ms of the quantized-matmul kernels and of everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    B, T = 32, 128
+    engine = InferenceEngine(model, params, max_batch=B, max_seq=512, kv_quant=True,
+                             dtype=torch.bfloat16)
+    ids = np.random.default_rng(SEED).integers(1, model.cfg.vocab_size, size=(B, T))
+    cache, logits = engine.prefill(engine.new_cache(), ids, np.full((B,), T, np.int32))
+    tokens = torch.argmax(logits, dim=-1)
+    cache, out = engine.decode_multi(cache, tokens, steps=steps)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.decode_multi(cache, out[:, -1], steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    matmul = sum(e.time_range.elapsed_us() for e in events
+                 if MATMUL_KERNEL_NAME.search(e.name)) / 1e3
+    wall_ms = 1e3 * wall
+    return {"launches": len(events) / steps, "busy_ms": busy / steps,
+            "matmul_ms": matmul / steps, "other_ms": (busy - matmul) / steps,
+            "wall_ms": wall_ms / steps, "idle_share": 1.0 - busy / wall_ms}
 
 
 def timed(fn):
@@ -485,7 +760,10 @@ def timed(fn):
 MEAN_NLL_REL_TOL = 2e-3
 
 
-def run_window_scoring(model, qparams, fparams, card) -> dict:
+def run_window_scoring(model, qparams, a8params, fparams, card) -> tuple[dict, dict]:
+    """Window scoring of the W4 and the A8 model, each through the kernels and
+    with the plain versions, and of the bf16 model. Returns each quantized
+    model's launches."""
     from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
 
     cfg = model.cfg
@@ -496,29 +774,50 @@ def run_window_scoring(model, qparams, fparams, card) -> dict:
     def score(params):
         return timed(lambda: perplexity_from_tokens(model, params, tokens, max_length, stride))
 
-    reset_counts()
-    ppl_q, s_q = score(qparams)
-    launches = kernel_counts()
-    want = {"w4": 4 * cfg.num_layers * windows, "w8": windows,
-            "flash_attention": cfg.num_layers * windows, "flash_decode": 0}
-    check(launches == want, f"window scoring launched {launches}, expected {want}")
-    check(math.isfinite(ppl_q), f"window scoring ppl {ppl_q} is not finite")
-    with plain_kernels():
-        ppl_plain, s_plain = score(qparams)
-    check(kernel_counts() == launches, "the plain-version scoring run launched kernels")
+    def kernels_vs_plain(params, body: str, head: str, label: str, exact: bool = False):
+        reset_counts()
+        ppl, secs = score(params)
+        launches = kernel_counts()
+        want = {name: 0 for name in launches}
+        want.update({body: 4 * cfg.num_layers * windows, head: windows,
+                     "flash_attention": cfg.num_layers * windows})
+        check(launches == want, f"{label} window scoring launched {launches}, expected {want}")
+        check(math.isfinite(ppl), f"{label} window scoring ppl {ppl} is not finite")
+        with plain_kernels():
+            ppl_plain, secs_plain = score(params)
+        check(kernel_counts() == launches, f"the plain-version {label} scoring run launched "
+                                           "kernels")
+        nll, nll_plain = math.log(ppl), math.log(ppl_plain)
+        tol = MEAN_NLL_REL_TOL * nll_plain
+        print(f"window scoring {label} launches over {windows} windows: {launches}; per window "
+              f"{ {k: v // windows for k, v in launches.items() if v} }", flush=True)
+        print(f"window scoring {label} (Gemma-3-270M bf16, seed {SEED}, {n_tokens} tokens, "
+              f"window {max_length}, stride {stride}) on {card}: ppl kernels {ppl:.4f} "
+              f"({1e3 * secs / windows:.1f} ms/window), plain versions {ppl_plain:.4f} "
+              f"({1e3 * secs_plain / windows:.1f} ms/window); mean NLL kernels vs plain "
+              f"{nll:.6f} vs {nll_plain:.6f}, tol {tol:.2e}", flush=True)
+        check(abs(nll - nll_plain) <= tol,
+              f"{label} window scoring mean NLL: kernels disagree with plain")
+        if exact:
+            # Only the matmul kernels swapped: they agree with their plain
+            # versions bit for bit at M=2048 too, and flash attention runs in
+            # both, so the ppl must be equal.
+            with plain_kernels(only=[kernel_modules()[body], kernel_modules()[head]]):
+                ppl_mm_plain, _ = score(params)
+            print(f"window scoring {label}: ppl with only {body}/{head} plain "
+                  f"{ppl_mm_plain:.4f} vs kernels {ppl:.4f}", flush=True)
+            check(ppl_mm_plain == ppl, f"{label} window scoring: the {body}/{head} kernels "
+                                       "disagree with their plain versions")
+        return launches, ppl
+
+    launches, ppl_q = kernels_vs_plain(qparams, "w4", "w8", "W4+int8 head")
+    launches_a8, ppl_a8 = kernels_vs_plain(a8params, "w4a8", "w8a8", "W4A8+W8A8 head",
+                                           exact=True)
     ppl_bf16, s_bf16 = score(fparams)
-    nll_q, nll_plain = math.log(ppl_q), math.log(ppl_plain)
-    tol = MEAN_NLL_REL_TOL * nll_plain
-    print(f"window scoring launches over {windows} windows: {launches}; per window "
-          f"{ {k: v // windows for k, v in launches.items()} }", flush=True)
-    print(f"window scoring (Gemma-3-270M bf16, seed {SEED}, {n_tokens} tokens, window "
-          f"{max_length}, stride {stride}) on {card}: ppl W4+int8 head kernels {ppl_q:.4f} "
-          f"({1e3 * s_q / windows:.1f} ms/window), plain versions {ppl_plain:.4f} "
-          f"({1e3 * s_plain / windows:.1f} ms/window), bf16 {ppl_bf16:.4f} "
-          f"({1e3 * s_bf16 / windows:.1f} ms/window); mean NLL kernels vs plain "
-          f"{nll_q:.6f} vs {nll_plain:.6f}, tol {tol:.2e}", flush=True)
-    check(abs(nll_q - nll_plain) <= tol, "window scoring mean NLL: kernels disagree with plain")
-    return launches
+    print(f"window scoring ppl on {card}: W4+int8 head {ppl_q:.4f}, W4A8+W8A8 head "
+          f"{ppl_a8:.4f}, bf16 {ppl_bf16:.4f} ({1e3 * s_bf16 / windows:.1f} ms/window)",
+          flush=True)
+    return launches, launches_a8
 
 
 # -- phase 7: decode-path scoring -------------------------------------------------
@@ -619,9 +918,20 @@ def main() -> int:
     kernel_results.update(run_attention_checks(gen))
     phase_done("3 kernels")
 
-    # Phase 4: the main path.
+    # Phase 4: the main path, W4 arm then A8 arm.
+    from onnx_quantize_tpu_torch.ops import convert_to_w4a8
+
     model, qparams, fparams = build_models()
-    launches = run_main_path(model, qparams)
+    w4_launches, w4_logits = run_main_path(model, qparams, "w4", "w8")
+    # bench's tree with the whole of it converted: W4A8 on the body and W8A8 on
+    # the lm_head (the TPU ablation converted the body only).
+    a8params = convert_to_w4a8(qparams)
+    a8_launches, a8_logits = run_main_path(model, a8params, "w4a8", "w8a8")
+    print(f"prefill logits A8 vs W4 arm (quantization error, not gated): mean_abs_diff="
+          f"{(a8_logits.float() - w4_logits.float()).abs().mean().item():.4e} "
+          f"mean|logit|={w4_logits.float().abs().mean().item():.4e}", flush=True)
+    launches = {k: w4_launches[k] for k in ("w4", "w8")}
+    launches.update({k: a8_launches[k] for k in ("w4a8", "w8a8")})
     phase_done("4 main path")
 
     # Phase 5: rates.
@@ -630,28 +940,57 @@ def main() -> int:
     # The fused arm is the quantized engine with flash decode in every layer.
     arms = {"quantized": decode_arm(model, qparams, kv_quant=True),
             "quantized fused": decode_arm(model, qparams, kv_quant=True, fused=True),
+            "w4a8": decode_arm(model, a8params, kv_quant=True),
             "bf16": decode_arm(model, fparams, kv_quant=False)}
     rates = {name: [] for name in arms}
     names = list(arms)
     for r in range(5):
-        for name in names[r % 3:] + names[:r % 3]:
+        for name in names[r % len(names):] + names[:r % len(names)]:
             rates[name].append(arms[name]())
-    rate_q, rate_f, rate_bf16 = (float(np.median(rates[n])) for n in names)
-    print(f"decode tok/s samples: {json.dumps({n: [round(v, 1) for v in r] for n, r in rates.items()})}")
+    rate_q, rate_f, rate_a8, rate_bf16 = (float(np.median(rates[n])) for n in names)
+    samples = {n: [round(v, 1) for v in r] for n, r in rates.items()}
+    print(f"decode tok/s samples: {json.dumps(samples)}")
     print(f"decode tok/s (B=32, prompt 128, slope 16->48 steps, CUDA events, median of 5) on "
           f"{card}: quantized W4+int8 head+int8 KV {rate_q:.1f}, with flash decode "
-          f"{rate_f:.1f}, bf16 {rate_bf16:.1f}, ratio quantized/bf16 {rate_q / rate_bf16:.3f}, "
-          f"fused/unfused {rate_f / rate_q:.3f}", flush=True)
+          f"{rate_f:.1f}, W4A8+W8A8 head+int8 KV {rate_a8:.1f}, bf16 {rate_bf16:.1f}, ratio "
+          f"quantized/bf16 {rate_q / rate_bf16:.3f}, fused/unfused {rate_f / rate_q:.3f}, "
+          f"w4a8/quantized {rate_a8 / rate_q:.3f}", flush=True)
     phase_done("5 rates")
 
-    # Phase 6: window scoring (the flash-attention path).
-    launches["flash_attention"] = run_window_scoring(model, qparams, fparams,
-                                                     card)["flash_attention"]
+    # Phase 6: window scoring (the flash-attention path), W4 and A8 models.
+    w4_scoring, a8_scoring = run_window_scoring(model, qparams, a8params, fparams, card)
+    launches["flash_attention"] = w4_scoring["flash_attention"]
+    check(a8_scoring["flash_attention"] == launches["flash_attention"],
+          "the A8 model's window scoring launched another flash-attention count")
     phase_done("6 window scoring")
 
     # Phase 7: decode-path scoring (the flash-decode path).
     launches["flash_decode"] = run_decode_scoring(model, qparams, card)["flash_decode"]
     phase_done("7 decode scoring")
+
+    # Launches of one A8 site: the activation quantizer alone, and the whole
+    # site through the dispatch (quantizer, pad, kernel, cast), beside the W4
+    # site's, at the qkv shape of a decode step with the engine's baked scales.
+    from onnx_quantize_tpu_torch.engine import prepare_kernel_scales
+    from onnx_quantize_tpu_torch.ops import quantized_matmul
+    from onnx_quantize_tpu_torch.ops.kernels.matmul_w4a8 import quantize_activation_int8
+
+    x = torch.randn((32, 640), generator=gen, device="cuda").to(torch.bfloat16)
+    qkv = {arm: prepare_kernel_scales(params)["layers.0"]["attn"]["_fused_qkv"]["w"]
+           for arm, params in (("a8", a8params), ("w4", qparams))}
+    counted = {"activation quantizer": count_launches(lambda: quantize_activation_int8(x)),
+               "A8 qkv site": count_launches(lambda: quantized_matmul(x, qkv["a8"])),
+               "W4 qkv site": count_launches(lambda: quantized_matmul(x, qkv["w4"]))}
+    print("device launches per call at M=32, K=640, bf16 x (torch.profiler): "
+          + ", ".join(f"{k} {v[0]} ({', '.join(v[1])})" for k, v in counted.items()), flush=True)
+    for arm, params in (("W4+int8 head", qparams), ("W4A8+W8A8 head", a8params)):
+        prof = profile_decode(model, params)
+        print(f"decode step profile, {arm} (B=32, int8 KV, torch.profiler, mean of 4 steps) on "
+              f"{card}: launches {prof['launches']:.0f}, device busy {prof['busy_ms']:.3f} ms "
+              f"(quantized matmul kernels {prof['matmul_ms']:.3f}, other "
+              f"{prof['other_ms']:.3f}), wall {prof['wall_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.3f}", flush=True)
+    phase_done("8 launch counts")
 
     # name in the kernels line, CUDA source, replaced TPU kernel.
     sources = {
@@ -659,6 +998,10 @@ def main() -> int:
                "onnx_quantize_tpu/ops/kernels/matmul_w4.py:32"),
         "w8": ("w8_dequant_matmul", "onnx_quantize_tpu_torch/csrc/matmul_w8.cu",
                "onnx_quantize_tpu/ops/kernels/matmul_w8.py:27"),
+        "w4a8": ("w4a8_matmul", "onnx_quantize_tpu_torch/csrc/matmul_w4a8.cu",
+                 "onnx_quantize_tpu/ops/kernels/matmul_w4a8.py:33"),
+        "w8a8": ("w8a8_matmul", "onnx_quantize_tpu_torch/csrc/matmul_w8a8.cu",
+                 "onnx_quantize_tpu/ops/kernels/matmul_w8a8.py:28"),
         "flash_attention": ("flash_attention", "onnx_quantize_tpu_torch/csrc/flash_attention.cu",
                             "onnx_quantize_tpu/ops/kernels/flash_attention.py:30"),
         "flash_decode": ("flash_decode", "onnx_quantize_tpu_torch/csrc/flash_decode.cu",
@@ -671,7 +1014,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

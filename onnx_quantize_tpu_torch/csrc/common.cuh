@@ -1,6 +1,6 @@
 // Shared pieces of the hand-written dequant-matmul kernels.
 //
-// Both kernels use the same block shape: 32 threads along N (one warp reads
+// All four matmul kernels (W4, W8, W4A8, W8A8) use the same block shape: 32 threads along N (one warp reads
 // consecutive columns of a weight row, so its loads coalesce) times 8 warps
 // along M. Each thread owns CPT adjacent columns and RPT rows of M, strided
 // by 8 so that a warp's reads of the staged activations all hit the same
@@ -45,6 +45,49 @@ __device__ __forceinline__ void stage_rows(float (*dst)[kRowChunk], const T* __r
     if (m0 + m < M && r < rc) v = to_f32(x[static_cast<size_t>(m0 + m) * ld + k0 + r]);
     dst[m][r] = v;
   }
+}
+
+// The int8-activation kernels (W4A8, W8A8) stage kChunk8 K rows of int8
+// activations at a time, each row padded by one word so that the per-row
+// sums read shared memory without bank conflicts. The dot products run on
+// __dp4a: four K values of x (one word of a staged row) against four K
+// values of one weight column, packed by transpose4x4.
+constexpr int kChunk8 = 64;
+constexpr int kRow8 = kChunk8 + 4;
+// Words (4 K rows each) of weight loads started before any is used, so that
+// one trip to device memory serves 16 rows.
+constexpr int kBatch8 = 4;
+
+// Stage int8 x[m0 : m0+BM, k0 : k0+rc] into dst[BM][kRow8], zero outside the
+// matrix and past rc (so a word that straddles rc sums only real values).
+template <int BM>
+__device__ __forceinline__ void stage_rows_i8(int8_t (*dst)[kRow8], const int8_t* __restrict__ x,
+                                              int M, int ld, int m0, int k0, int rc, int tid) {
+  for (int i = tid; i < BM * kChunk8; i += kThreads) {
+    const int m = i / kChunk8;
+    const int r = i % kChunk8;
+    int8_t v = 0;
+    if (m0 + m < M && r < rc) v = x[static_cast<size_t>(m0 + m) * ld + k0 + r];
+    dst[m][r] = v;
+  }
+}
+
+// Word j of a staged int8 row: x at K offsets 4j .. 4j+3, lowest byte first.
+__device__ __forceinline__ int staged_word(const int8_t* row, int j) {
+  return reinterpret_cast<const int*>(row)[j];
+}
+
+// rows[j] holds byte c of weight row j for column c; cols[c] gets byte j of
+// rows[j]: the four K values of column c in __dp4a order.
+__device__ __forceinline__ void transpose4x4(const uint32_t rows[4], uint32_t cols[4]) {
+  const uint32_t a = __byte_perm(rows[0], rows[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+  const uint32_t b = __byte_perm(rows[2], rows[3], 0x5140);  // r2.b0 r3.b0 r2.b1 r3.b1
+  const uint32_t c = __byte_perm(rows[0], rows[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+  const uint32_t d = __byte_perm(rows[2], rows[3], 0x7362);  // r2.b2 r3.b2 r2.b3 r3.b3
+  cols[0] = __byte_perm(a, b, 0x5410);
+  cols[1] = __byte_perm(a, b, 0x7632);
+  cols[2] = __byte_perm(c, d, 0x5410);
+  cols[3] = __byte_perm(c, d, 0x7632);
 }
 
 }  // namespace oqt

@@ -5,6 +5,7 @@ whose leaves are arrays, or QTensors read by attribute) and returns the same
 tree over torch tensors, so both packages can run on the same weights. It
 needs no JAX import: array leaves go through ``numpy.asarray``, and a QTensor
 is recognised by its ``data``/``scale``/``zero_point``/``meta`` attributes.
+The tree lands on the CUDA device unless the caller names another.
 """
 
 from __future__ import annotations
@@ -12,12 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from onnx_quantize_tpu_torch.nn.qtensor import QTensor, QTensorMeta
+from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QTensor, QTensorMeta
 
 __all__ = ["from_jax_params"]
 
 
-def _array_to_torch(a, device: torch.device | str = "cpu") -> torch.Tensor:
+def _array_to_torch(a, device: torch.device | str) -> torch.Tensor:
     """An array (numpy, or anything ``numpy.asarray`` takes) as a torch tensor.
 
     bfloat16 arrays (an ml_dtypes dtype in numpy) cross as their bits."""
@@ -31,24 +32,37 @@ def _is_jax_qtensor(leaf) -> bool:
     return all(hasattr(leaf, name) for name in ("data", "scale", "zero_point", "meta"))
 
 
+def _is_jax_qbias(leaf) -> bool:
+    return all(hasattr(leaf, name) for name in ("data", "scale", "zero_point", "quant_type"))
+
+
+def _act_spec(spec) -> ActQuantSpec:
+    return ActQuantSpec(mode=spec.mode, dtype=spec.dtype, symmetric=spec.symmetric,
+                        reduce_range=spec.reduce_range)
+
+
 def _qtensor_to_torch(leaf, device) -> QTensor:
     m = leaf.meta
-    if m.input_quant.mode != "none" or m.output_quant.mode != "none":
-        raise NotImplementedError(
-            "Activation-quantized QTensors are not ported to PyTorch yet; see ROADMAP.md, "
-            "Queue A item 10."
-        )
     meta = QTensorMeta(
         quant_type=m.quant_type, strategy=m.strategy, group_size=m.group_size,
         symmetric=m.symmetric, reduce_range=m.reduce_range, shape=tuple(m.shape),
         format=m.format, packed=m.packed, pack_group=m.pack_group,
+        input_quant=_act_spec(m.input_quant), output_quant=_act_spec(m.output_quant),
     )
+
+    def optional(a):
+        return None if a is None else _array_to_torch(a, device)
+
     return QTensor(data=_array_to_torch(leaf.data, device),
                    scale=_array_to_torch(leaf.scale, device),
-                   zero_point=_array_to_torch(leaf.zero_point, device), meta=meta)
+                   zero_point=_array_to_torch(leaf.zero_point, device), meta=meta,
+                   input_scale=optional(leaf.input_scale),
+                   input_zero_point=optional(leaf.input_zero_point),
+                   output_scale=optional(leaf.output_scale),
+                   output_zero_point=optional(leaf.output_zero_point))
 
 
-def from_jax_params(tree, device: torch.device | str = "cpu"):
+def from_jax_params(tree, device: torch.device | str = "cuda"):
     """The JAX package's param tree as the port's, on ``device``."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
@@ -56,4 +70,9 @@ def from_jax_params(tree, device: torch.device | str = "cpu"):
         return None
     if _is_jax_qtensor(tree):
         return _qtensor_to_torch(tree, device)
+    if _is_jax_qbias(tree):
+        raise NotImplementedError(
+            "Quantized biases (QBias) are not ported to PyTorch yet; see ROADMAP.md, "
+            "Queue A item 10."
+        )
     return _array_to_torch(tree, device)

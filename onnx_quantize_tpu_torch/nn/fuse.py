@@ -24,6 +24,12 @@ def _compatible_meta(a: QTensor, b: QTensor) -> bool:
     )
 
 
+def _same(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    return bool(torch.allclose(a, b))
+
+
 def can_fuse(site_params: list[dict]) -> bool:
     """All sites quantized alike (or all float), no bias."""
     if any(p.get("b") is not None for p in site_params):
@@ -31,9 +37,14 @@ def can_fuse(site_params: list[dict]) -> bool:
     leaves = [p.get("w") for p in site_params]
     if all(isinstance(w, QTensor) for w in leaves):
         first = leaves[0]
+        if first.meta.output_quant.mode == "static":
+            return False  # per-site output scales cannot concatenate per-tensor
         if first.meta.strategy == "tensor":
             return False  # per-tensor weight scales differ between sites
-        return all(_compatible_meta(first, w) for w in leaves[1:])
+        return all(_compatible_meta(first, w)
+                   and _same(first.input_scale, w.input_scale)
+                   and _same(first.input_zero_point, w.input_zero_point)
+                   for w in leaves[1:])
     if all(isinstance(w, torch.Tensor) for w in leaves):
         return all(w.ndim == 2 and w.shape[0] == leaves[0].shape[0] for w in leaves)
     return False
@@ -53,5 +64,7 @@ def fuse_sites(site_params: list[dict]):
         scale=torch.cat([w.scale for w in leaves], dim=-1),
         zero_point=torch.cat([w.zero_point for w in leaves], dim=-1),
         meta=dataclasses.replace(first.meta, shape=(first.meta.shape[0], sum(sizes))),
+        input_scale=first.input_scale,
+        input_zero_point=first.input_zero_point,
     )
     return fused, sizes

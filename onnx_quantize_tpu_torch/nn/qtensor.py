@@ -13,6 +13,10 @@ packed bytes and scales compare equal between the two packages:
 
 The engine may re-lay group scales as padded ``(G_pad/2, 2, N)`` float32
 rows (``engine.prepare_kernel_scales``); both layouts are valid everywhere.
+
+Beside the weight, a QTensor carries its site's execution spec: how the
+input and output activations are quantized (:class:`ActQuantSpec`, "none"
+by default) and their static qparams, when there are any.
 """
 
 from __future__ import annotations
@@ -24,7 +28,25 @@ import torch
 from onnx_quantize_tpu_torch.core.dtypes import QuantType
 from onnx_quantize_tpu_torch.core.enums import QFormat, QuantizationStrategy
 
-__all__ = ["QTensorMeta", "QTensor", "make_qtensor", "pack_layout", "unpack_k_pairs"]
+__all__ = ["ActQuantSpec", "QTensorMeta", "QTensor", "make_qtensor", "pack_layout",
+           "unpack_k_pairs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ActQuantSpec:
+    """Static description of one activation quantization (input or output)."""
+
+    mode: str  # "none" | "static" | "dynamic"
+    dtype: str = "uint8"  # QuantType value
+    symmetric: bool = False
+    reduce_range: bool = False
+
+    @property
+    def quant_type(self) -> QuantType:
+        return QuantType(self.dtype)
+
+
+_NO_ACT = ActQuantSpec(mode="none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +62,8 @@ class QTensorMeta:
     format: str = "qdq"  # QFormat value
     packed: bool = False  # 4-bit group-pair nibble packing along K
     pack_group: int = 0  # rows per nibble group (gs for GROUP, ceil(K/2) else)
+    input_quant: ActQuantSpec = _NO_ACT
+    output_quant: ActQuantSpec = _NO_ACT
 
     @property
     def qt(self) -> QuantType:
@@ -56,21 +80,32 @@ class QTensorMeta:
 
 @dataclasses.dataclass
 class QTensor:
-    """Quantized weight: integer data, float32 scale, zero point, metadata."""
+    """Quantized weight: integer data, float32 scale, zero point, metadata,
+    and the static activation qparams (None unless the spec is static)."""
 
     data: torch.Tensor  # (K, N) int8/uint8, or (K_pad/2, N) uint8 when packed
     scale: torch.Tensor  # scalar | (N,) | (n_groups, N) | (G_pad/2, 2, N)
     zero_point: torch.Tensor  # same shape family as scale
     meta: QTensorMeta
+    input_scale: torch.Tensor | None = None
+    input_zero_point: torch.Tensor | None = None
+    output_scale: torch.Tensor | None = None
+    output_zero_point: torch.Tensor | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
         return self.meta.shape
 
     def to(self, device) -> "QTensor":
+        def move(t):
+            return None if t is None else t.to(device)
+
         return dataclasses.replace(
             self, data=self.data.to(device), scale=self.scale.to(device),
-            zero_point=self.zero_point.to(device),
+            zero_point=self.zero_point.to(device), input_scale=move(self.input_scale),
+            input_zero_point=move(self.input_zero_point),
+            output_scale=move(self.output_scale),
+            output_zero_point=move(self.output_zero_point),
         )
 
 
@@ -130,6 +165,13 @@ def make_qtensor(
     group_size: int,
     symmetric: bool,
     reduce_range: bool,
+    fmt: QFormat = QFormat.QDQ,
+    input_quant: ActQuantSpec = _NO_ACT,
+    output_quant: ActQuantSpec = _NO_ACT,
+    input_scale: torch.Tensor | None = None,
+    input_zero_point: torch.Tensor | None = None,
+    output_scale: torch.Tensor | None = None,
+    output_zero_point: torch.Tensor | None = None,
 ) -> QTensor:
     """Build a QTensor from algorithm outputs (``(K, N)`` q-weight + qparams)."""
     K, N = q_weight.shape
@@ -148,8 +190,12 @@ def make_qtensor(
         symmetric=symmetric,
         reduce_range=reduce_range,
         shape=(K, N),
-        format=QFormat.QDQ.value,
+        format=fmt.value,
         packed=packed,
         pack_group=gs,
+        input_quant=input_quant,
+        output_quant=output_quant,
     )
-    return QTensor(data=data, scale=scale, zero_point=zero_point, meta=meta)
+    return QTensor(data=data, scale=scale, zero_point=zero_point, meta=meta,
+                   input_scale=input_scale, input_zero_point=input_zero_point,
+                   output_scale=output_scale, output_zero_point=output_zero_point)

@@ -129,6 +129,10 @@ def kernel_library() -> ctypes.CDLL:
         lib.oqt_w4_matmul.restype = i
         lib.oqt_w8_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.oqt_w8_matmul.restype = i
+        lib.oqt_w4a8_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.oqt_w4a8_matmul.restype = i
+        lib.oqt_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.oqt_w8a8_matmul.restype = i
         lib.oqt_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.oqt_flash_decode.restype = i
         lib.oqt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
@@ -160,10 +164,13 @@ def use_four_columns(N: int, device: torch.device) -> bool:
     return N % 4 == 0 and -(-N // 128) >= sms
 
 
-# Import kernel modules so they register (and load).
-from onnx_quantize_tpu_torch.ops.kernels import (  # noqa: E402,F401
-    flash_attention,
-    flash_decode,
+# Import kernel modules so they register. Order matters: the A8 predicates
+# are strict subsets of the weight-only ones, so they register first.
+from onnx_quantize_tpu_torch.ops.kernels import (  # noqa: E402,F401,I001
+    matmul_w4a8,
+    matmul_w8a8,
     matmul_w4,
     matmul_w8,
+    flash_attention,
+    flash_decode,
 )

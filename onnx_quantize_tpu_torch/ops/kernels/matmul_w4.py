@@ -32,6 +32,7 @@ from onnx_quantize_tpu_torch.ops.kernels import (
     stream_ptr,
     use_four_columns,
 )
+from onnx_quantize_tpu_torch.ops.reference import qdq_epilogue, qdq_prologue
 
 __all__ = ["w4_matmul", "w4_dequant_matmul_plain", "w4_dequant_matmul", "w4_operands",
            "expand_w4_scales"]
@@ -162,5 +163,7 @@ def _w4_predicate(x, qt: QTensor, bias) -> bool:
 
 @register_kernel(_w4_predicate)
 def _w4_kernel_entry(x, qt: QTensor, bias):
-    y = w4_dequant_matmul(x, qt)
-    return y if bias is None else y + bias
+    # Activation QDQ around the weight-only kernel: an A8 site that no A8
+    # kernel covers still computes the reference's result.
+    y = w4_dequant_matmul(qdq_prologue(x, qt), qt)
+    return qdq_epilogue(y, qt, bias)

@@ -29,6 +29,7 @@ from onnx_quantize_tpu_torch.ops.kernels import (
     stream_ptr,
     use_four_columns,
 )
+from onnx_quantize_tpu_torch.ops.reference import qdq_epilogue, qdq_prologue
 
 __all__ = ["w8_matmul", "w8_dequant_matmul_plain", "w8_dequant_matmul", "w8_operands",
            "w8_scale_rows"]
@@ -155,5 +156,7 @@ def _w8_predicate(x, qt: QTensor, bias) -> bool:
 
 @register_kernel(_w8_predicate)
 def _w8_kernel_entry(x, qt: QTensor, bias):
-    y = w8_dequant_matmul(x, qt)
-    return y if bias is None else y + bias
+    # Activation QDQ around the weight-only kernel: an A8 site that no A8
+    # kernel covers still computes the reference's result.
+    y = w8_dequant_matmul(qdq_prologue(x, qt), qt)
+    return qdq_epilogue(y, qt, bias)

@@ -1,11 +1,11 @@
-"""quantize(): weight-only RTN QDQ over a model's param tree.
+"""quantize(): RTN QDQ over a model's param tree.
 
 Counterpart of ``onnx_quantize_tpu/quantize.py`` for the ported slice:
 
     model + params + QConfig
       -> build the plan over the model's Linear sites (ignore regexes)
       -> untie shared weights
-      -> per-site RTN + QTensor packing
+      -> per-site RTN + QTensor packing, stamped with the activation specs
 
 Sites that are already QTensors are left as they are, so mixed configs are
 applied as sequential calls with complementary ignore patterns (the body in
@@ -19,15 +19,23 @@ import logging
 import torch
 
 from onnx_quantize_tpu_torch.algorithms.rtn import rtn_quantize
-from onnx_quantize_tpu_torch.core.qconfig import QConfig
+from onnx_quantize_tpu_torch.core.qconfig import QActivationArgs, QConfig
 from onnx_quantize_tpu_torch.nn.module import Module
-from onnx_quantize_tpu_torch.nn.qtensor import QTensor, make_qtensor
+from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QTensor, make_qtensor
 from onnx_quantize_tpu_torch.plan import PlanEntry, QuantPlan, build_plan
 from onnx_quantize_tpu_torch.utils import tree_get, untie_params
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["quantize"]
+
+
+def _act_spec(qargs: QActivationArgs | None) -> ActQuantSpec:
+    if qargs is None:
+        return ActQuantSpec(mode="none")
+    return ActQuantSpec(mode="static" if qargs.is_static else "dynamic",
+                        dtype=qargs.dtype.value, symmetric=qargs.symmetric,
+                        reduce_range=qargs.reduce_range)
 
 
 def _transform_site(entry: PlanEntry, params: dict) -> None:
@@ -48,9 +56,12 @@ def _transform_site(entry: PlanEntry, params: dict) -> None:
         site_params["w"], w_args.dtype, strategy=w_args.strategy, group_size=gs,
         is_symmetric=w_args.symmetric, reduce_range=w_args.reduce_range,
     )
+    # QConfig admits dynamic activations only, so no site needs static qparams.
     site_params["w"] = make_qtensor(
         q, scale, zp, quant_type=w_args.dtype, strategy=w_args.strategy,
         group_size=gs, symmetric=w_args.symmetric, reduce_range=w_args.reduce_range,
+        fmt=entry.qconfig.format, input_quant=_act_spec(entry.qconfig.input_activations),
+        output_quant=_act_spec(entry.qconfig.output_activations),
     )
 
 

@@ -19,8 +19,15 @@ from onnx_quantize_tpu_torch.algorithms import rtn_quantize
 from onnx_quantize_tpu_torch.engine import InferenceEngine, prepare_kernel_scales
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
 from onnx_quantize_tpu_torch.nn.qtensor import make_qtensor
-from onnx_quantize_tpu_torch.ops import quantized_matmul
-from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode, matmul_w4, matmul_w8
+from onnx_quantize_tpu_torch.ops import convert_to_w4a8, quantized_matmul
+from onnx_quantize_tpu_torch.ops.kernels import (
+    flash_attention,
+    flash_decode,
+    matmul_w4,
+    matmul_w4a8,
+    matmul_w8,
+    matmul_w8a8,
+)
 from onnx_quantize_tpu_torch.ops.reference import _qdq_matmul
 from onnx_quantize_tpu_torch.plan import resolve_group_size
 from onnx_quantize_tpu_torch.utils import tree_map
@@ -46,15 +53,17 @@ def _require_cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _qtensor(dtype, group_size, symmetric, K, N, seed=0):
+def _qtensor(dtype, group_size, symmetric, K, N, seed=0, a8=False):
     args = oqt.QWeightArgs(dtype=dtype, group_size=group_size, symmetric=symmetric)
     gs = resolve_group_size(K, group_size) or -1
     w = torch.from_numpy(
         (0.1 * np.random.default_rng(seed).standard_normal((K, N))).astype(np.float32))
     q, s, z = rtn_quantize(w, args.dtype, args.strategy, gs, symmetric, False)
-    qt = make_qtensor(q, s, z, quant_type=args.dtype, strategy=args.strategy, group_size=gs,
-                      symmetric=symmetric, reduce_range=False)
-    return prepare_kernel_scales({"w": qt})["w"]
+    tree = {"w": make_qtensor(q, s, z, quant_type=args.dtype, strategy=args.strategy,
+                              group_size=gs, symmetric=symmetric, reduce_range=False)}
+    if a8:
+        tree = convert_to_w4a8(tree)
+    return prepare_kernel_scales(tree)["w"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-g{c[1]}-{c[3]}x{c[4]}")
@@ -76,6 +85,97 @@ def test_kernel_matches_plain_reference(case):
         want = _qdq_matmul(x.float(), qt)
         assert got.shape == want.shape
         assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# (dtype, group_size, symmetric, K, N, x shape) of dynamic-int8 (A8) sites.
+A8_CASES = [
+    ("uint4", 64, False, 320, 200, (5,)),  # W4A8: a pad group, ragged N
+    ("uint4", 128, False, 640, 1536, (32,)),  # the Gemma qkv site at decode
+    ("int4", 64, True, 128, 20000, (3, 70)),  # 4 columns per thread, ragged M
+    ("uint4", -1, False, 130, 128, (4,)),  # channel scales, group of 65 rows
+    ("int8", -1, True, 640, 40004, (33,)),  # W8A8: lm_head-like, ragged N edge
+    ("uint8", -1, True, 96, 128, (7,)),  # uint8 symmetric, shifted by 128
+    ("int8", 32, True, 96, 999, (65,)),  # group tiles, ragged M and N
+    ("int8", -1, True, 1100, 256, (9,)),  # one tile past the plain version's 1024 rows
+]
+
+
+@pytest.mark.parametrize("case", A8_CASES, ids=lambda c: f"a8-{c[0]}-g{c[1]}-{c[3]}x{c[4]}")
+def test_a8_kernel_matches_plain_and_oracle(case):
+    """The A8 kernels against their plain versions on the card and the CPU
+    oracle (fake-quantized x, dequantized W, float32): the integer partials
+    are exact on every side, so they differ only in the float32 order of the
+    group sums, within 1e-4 of max|y|."""
+    _require_cuda()
+    dtype, gs, sym, K, N, xshape = case
+    qt = _qtensor(dtype, gs, sym, K, N, a8=True)
+    module, plain, operands = ((matmul_w4a8, matmul_w4a8.w4a8_matmul_plain,
+                                matmul_w4a8.w4a8_operands) if qt.meta.packed else
+                               (matmul_w8a8, matmul_w8a8.w8a8_matmul_plain,
+                                matmul_w8a8.w8a8_operands))
+    card_qt = qt.to("cuda")
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(xshape + (K,)).astype(
+            np.float32)).to(xdt)
+        before = module.launches
+        got = quantized_matmul(x.cuda(), card_qt)
+        torch.cuda.synchronize()
+        assert module.launches == before + 1
+        ops, kw = operands(x.cuda(), card_qt)
+        ref = plain(*ops, **kw).reshape(got.shape)
+        want = _qdq_matmul(x, qt)
+        assert got.shape == want.shape
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_activation_quantizer_on_card_equals_cpu():
+    """The int8 codes and scale on the card are bit-equal to the CPU's."""
+    _require_cuda()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((33, 640)).astype(np.float32))
+    for xdt in (torch.float32, torch.bfloat16):
+        q_card, s_card = matmul_w4a8.quantize_activation_int8(x.to(xdt).cuda())
+        q_cpu, s_cpu = matmul_w4a8.quantize_activation_int8(x.to(xdt))
+        assert torch.equal(q_card.cpu(), q_cpu) and torch.equal(s_card.cpu(), s_cpu)
+
+
+def test_a8_engine_on_card_matches_cpu_and_counts_launches():
+    """A tiny float32 A8 engine (every slot active, since the per-tensor
+    activation scale couples the rows of a batch): logits through the A8
+    kernels within 1e-4 of the largest logit of the CPU run, greedy tokens
+    equal, one W4A8 launch per body site and one W8A8 launch per step, and
+    no weight-only launch."""
+    _require_cuda()
+    cfg = Gemma3Config.tiny(hidden_size=320, intermediate_size=512, num_layers=3,
+                            sliding_pattern=3, num_heads=2, num_kv_heads=1, head_dim=64,
+                            sliding_window=8, vocab_size=512)
+    model = Gemma3(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=64), ignore=["lm_head"]))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    params = convert_to_w4a8(fuse_gemma3_projections(params))
+    on_card = tree_map(lambda t: t.to("cuda"), params)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 15)).astype(np.int32)
+    lengths = np.array([12, 9, 15, 3], np.int32)
+    modules = (matmul_w4a8, matmul_w8a8, matmul_w4, matmul_w8)
+
+    def run(p):
+        eng = InferenceEngine(model, p, max_batch=4, max_seq=32, kv_quant=True)
+        cache, logits = eng.prefill(eng.new_cache(), ids, lengths)
+        before = [m.launches for m in modules]
+        cache, toks = eng.decode_multi(cache, torch.argmax(logits, -1), steps=6)
+        launched = tuple(m.launches - b for m, b in zip(modules, before))
+        return logits.float().cpu(), toks.cpu(), launched
+
+    cpu_logits, cpu_toks, cpu_launches = run(params)
+    gpu_logits, gpu_toks, gpu_launches = run(on_card)
+    assert cpu_launches == (0, 0, 0, 0)
+    assert gpu_launches == (4 * cfg.num_layers * 6, 6, 0, 0)
+    assert (gpu_logits - cpu_logits).abs().max().item() <= 1e-4 * cpu_logits.abs().max().item()
+    assert torch.equal(gpu_toks, cpu_toks)
 
 
 def test_engine_on_card_matches_cpu_and_counts_launches():

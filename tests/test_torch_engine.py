@@ -51,7 +51,7 @@ def setup():
     ids = np.zeros((B, int(LENGTHS.max())), np.int32)
     for i, n in enumerate(LENGTHS):
         ids[i, :n] = rng.integers(0, TINY["vocab_size"], n)
-    return jmodel, params, tmodel, from_jax_params(params), ids
+    return jmodel, params, tmodel, from_jax_params(params, device="cpu"), ids
 
 
 @pytest.fixture(scope="module")

@@ -35,7 +35,8 @@ REL_TOL = 1e-5
 def tiny128():
     jmodel = JGemma3(JGemma3Config.tiny(**TINY128))
     jparams = jmodel.init(jax.random.key(0))
-    return jmodel, jparams, Gemma3(Gemma3Config.tiny(**TINY128)), from_jax_params(jparams)
+    return (jmodel, jparams, Gemma3(Gemma3Config.tiny(**TINY128)),
+            from_jax_params(jparams, device="cpu"))
 
 
 def _close(got, want, rel=REL_TOL):

@@ -66,7 +66,7 @@ def test_logits_match_jax(models, quantized, fused):
     jp = qparams if quantized else params
     if fused:
         jp = jax_fuse(jp)
-    tp = from_jax_params(jp)
+    tp = from_jax_params(jp, device="cpu")
     if fused:
         assert "_fused_qkv" in tp["layers.0"]["attn"]
         assert "_fused_gate_up" in tp["layers.0"]["mlp"]
@@ -83,7 +83,7 @@ def test_port_quantizes_and_fuses_like_jax(models):
     import onnx_quantize_tpu_torch as pt
 
     jmodel, tmodel, params, qparams = models
-    tp = from_jax_params(params)
+    tp = from_jax_params(params, device="cpu")
     tp, _ = pt.quantize(tmodel, tp, pt.QConfig(weights=pt.QWeightArgs(**BODY),
                                                ignore=["lm_head"]))
     tp, _ = pt.quantize(tmodel, tp, pt.QConfig(weights=pt.QWeightArgs(**HEAD),
@@ -98,7 +98,7 @@ def test_bf16_stream_stays_bf16(models):
     quantized sites, within bf16 rounding (2^-8 relative per op, over three
     layers: 5% of the largest logit) of the float32 model."""
     _, tmodel, _, qparams = models
-    tp = fuse_gemma3_projections(from_jax_params(qparams))
+    tp = fuse_gemma3_projections(from_jax_params(qparams, device="cpu"))
     bf_model = Gemma3(dataclasses.replace(tmodel.cfg, dtype="bfloat16"))
     bf_params = tree_map(
         lambda t: t.to(torch.bfloat16) if isinstance(t, torch.Tensor) else t, tp)

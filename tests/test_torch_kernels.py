@@ -37,7 +37,7 @@ def _make(dtype, strategy, gs, sym, K, N, seed=0, bake=True):
                            group_size=gs, symmetric=sym, reduce_range=False)
     if bake:
         jqt = jax_prepare({"w": jqt})["w"]
-    return jqt, from_jax_params({"w": jqt})["w"]
+    return jqt, from_jax_params({"w": jqt}, device="cpu")["w"]
 
 
 def _close(got, want):

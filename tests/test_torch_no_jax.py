@@ -36,7 +36,8 @@ def test_port_source_imports_no_jax(path):
 def test_port_sources_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "gemma3.py", "matmul_w4.py", "matmul_w8.py", "flash_attention.py",
-            "flash_decode.py", "perplexity.py", "chip_smoke.py"} <= names
+            "flash_decode.py", "perplexity.py", "matmul_w4a8.py", "matmul_w8a8.py",
+            "chip_smoke.py"} <= names
 
 
 def test_importing_the_port_builds_no_kernel():
@@ -47,4 +48,5 @@ def test_importing_the_port_builds_no_kernel():
 
     assert kernels._LIBRARY is None
     assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {
-        "matmul_w4.cu", "matmul_w8.cu", "flash_attention.cu", "flash_decode.cu"}
+        "matmul_w4.cu", "matmul_w8.cu", "flash_attention.cu", "flash_decode.cu",
+        "matmul_w4a8.cu", "matmul_w8a8.cu"}

@@ -12,7 +12,7 @@ from onnx_quantize_tpu.core.dtypes import QuantType as JQuantType
 from onnx_quantize_tpu.core.enums import QuantizationStrategy as JStrategy
 from onnx_quantize_tpu.models.gemma3 import Gemma3 as JGemma3
 from onnx_quantize_tpu.models.gemma3 import Gemma3Config as JGemma3Config
-from onnx_quantize_tpu_torch import QConfig, QuantType, QWeightArgs, quantize
+from onnx_quantize_tpu_torch import QActivationArgs, QConfig, QuantType, QWeightArgs, quantize
 from onnx_quantize_tpu_torch.algorithms import rtn_quantize
 from onnx_quantize_tpu_torch.core import numerics as tnum
 from onnx_quantize_tpu_torch.core.enums import QuantizationStrategy
@@ -96,7 +96,7 @@ def test_quantize_tree_bit_equal_with_group_fallback():
     head = dict(weights=dict(dtype="int8", group_size=-1, symmetric=True),
                 ignore=[r"^layers\."])
     jq = params
-    tq = from_jax_params(params)
+    tq = from_jax_params(params, device="cpu")
     for cfg in (body, head):
         jq, _ = oqt.quantize(jmodel, jq, oqt.QConfig(weights=oqt.QWeightArgs(**cfg["weights"]),
                                                      ignore=cfg["ignore"]))
@@ -119,7 +119,9 @@ def test_quantize_tree_bit_equal_with_group_fallback():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(weights=QWeightArgs(dtype="uint4", group_size=128), input_activations=object()),
+    # Static activations need calibration (dynamic ones are ported).
+    dict(weights=QWeightArgs(dtype="int8", group_size=-1),
+         input_activations=QActivationArgs(dtype="uint8")),
     dict(weights=QWeightArgs(dtype="uint4", group_size=128), format="qlinear"),
     dict(weights=QWeightArgs(dtype="uint4", group_size=128), preprocessors=[object()]),
 ])

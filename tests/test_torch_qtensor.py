@@ -117,8 +117,62 @@ def test_bridge_carries_qtensors_and_bf16():
     jqt, _ = _both("uint4", "group", 64, False, 320, 48)
     tree = {"a": {"w": jqt}, "b": {"w": jnp.asarray(np.arange(6, dtype=np.float32)).astype(
         jnp.bfloat16)}}
-    out = from_jax_params(tree)
+    out = from_jax_params(tree, device="cpu")
     assert out["a"]["w"].meta.pack_group == 64
     np.testing.assert_array_equal(out["a"]["w"].data.numpy(), np.asarray(jqt.data))
     assert out["b"]["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(out["b"]["w"].float().numpy(), np.arange(6))
+
+
+def test_bridge_carries_activation_specs_and_static_qparams():
+    """An A8 tree crosses with its metadata equal field by field, a static
+    site with its activation qparams, and QTensor.to moves them all."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from onnx_quantize_tpu.nn.qtensor import ActQuantSpec as JActQuantSpec
+    from onnx_quantize_tpu.nn.qtensor import QBias as JQBias
+    from onnx_quantize_tpu.ops import convert_to_w4a8 as jax_convert
+
+    jqt, _ = _both("uint4", "group", 64, False, 320, 48)
+    j8, _ = _both("int8", "channel", -1, True, 96, 32)
+    a8 = jax_convert({"a": {"w": jqt}, "h": {"w": j8}})
+    static = JActQuantSpec(mode="static", dtype="uint8")
+    jst = dataclasses.replace(
+        j8, meta=dataclasses.replace(j8.meta, input_quant=static, output_quant=static),
+        input_scale=jnp.float32(0.02), input_zero_point=jnp.float32(128.0),
+        output_scale=jnp.float32(0.5), output_zero_point=jnp.float32(3.0))
+    out = from_jax_params({**a8, "s": {"w": jst}}, device="cpu")
+    for key in ("a", "h", "s"):
+        jmeta = (a8.get(key) or {"w": jst})["w"].meta
+        tmeta = out[key]["w"].meta
+        for field in dataclasses.fields(jmeta):
+            want = getattr(jmeta, field.name)
+            got = getattr(tmeta, field.name)
+            if field.name in ("input_quant", "output_quant"):
+                assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            else:
+                assert got == (tuple(want) if field.name == "shape" else want)
+    assert out["a"]["w"].meta.input_quant.mode == "dynamic"
+    assert out["a"]["w"].input_scale is None
+    moved = out["s"]["w"].to("meta")
+    assert moved.input_scale.device.type == moved.output_zero_point.device.type == "meta"
+    assert out["s"]["w"].input_scale.item() == np.float32(0.02)
+    assert out["s"]["w"].output_zero_point.item() == 3.0
+    qbias = JQBias(data=jnp.zeros(4, jnp.int32), scale=jnp.float32(1), zero_point=jnp.int32(0),
+                   quant_type="int32")
+    with pytest.raises(NotImplementedError, match="QBias"):
+        from_jax_params({"b": qbias}, device="cpu")
+
+
+def test_fusion_keeps_activation_specs():
+    """Fusing A8 sites keeps the spec (as the reference's fusion does); sites
+    with different specs do not fuse."""
+    from onnx_quantize_tpu_torch.ops import convert_to_w4a8
+
+    sites = [_both("uint4", "group", 64, False, 320, n, seed=n)[1] for n in (64, 32)]
+    a8 = [convert_to_w4a8({"w": t})["w"] for t in sites]
+    assert can_fuse([{"w": w} for w in a8])
+    fused, sizes = fuse_sites([{"w": w} for w in a8])
+    assert sizes == [64, 32] and fused.meta.input_quant == a8[0].meta.input_quant
+    assert not can_fuse([{"w": a8[0]}, {"w": sites[1]}])

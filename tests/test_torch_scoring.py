@@ -37,7 +37,8 @@ def tiny128():
     jmodel = JGemma3(JGemma3Config.tiny(**TINY128))
     jparams = jmodel.init(jax.random.key(1))
     ids = np.random.default_rng(11).integers(0, 256, (len(LENGTHS), T)).astype(np.int32)
-    return jmodel, jparams, Gemma3(Gemma3Config.tiny(**TINY128)), from_jax_params(jparams), ids
+    return (jmodel, jparams, Gemma3(Gemma3Config.tiny(**TINY128)),
+            from_jax_params(jparams, device="cpu"), ids)
 
 
 @pytest.fixture(scope="module")
