@@ -18,7 +18,13 @@ Phases (any failed check exits non-zero; each prints its seconds):
    at a scoring window's M=2048. Yardsticks the port never calls, on the
    same operands: ``torch._weight_int4pack_mm`` (W4 body sites),
    ``torch._weight_int8pack_mm`` (W8 lm_head) and ``torch._int_mm`` (W8A8
-   lm_head). Flash
+   lm_head, and the int32 core of Q8). Q8 (QLINEAR) on one layer's seven
+   site shapes at M=32 and 4096 and at odd shapes (ragged M, K=100 and
+   1000, int8 and uint8 weights, symmetric and not, per tensor and per
+   channel, with and without an int32 bias), bit-equal to its plain version.
+   The fused W4 MLP at the 270M widths (M=32, 1, 256) and a ragged-K int4
+   case, timed beside the unfused W4 gate_up, GeGLU, W4 down it replaces.
+   Flash
    decode at B=32, S=4096, 4 query heads on 1 KV head of 256, ragged
    positions (0, tile edges, the pos = S sentinel), window 512 and none, odd
    shapes, timed at B=32, S=1024, pos=640. Flash attention at T=S=2048 and
@@ -31,9 +37,18 @@ Phases (any failed check exits non-zero; each prints its seconds):
    against the same engine with the kernels swapped for their plain versions.
    Then the A8 arm: ``convert_to_w4a8`` of the same tree (W4A8 on every body
    site, W8A8 on the lm_head), through the same sequence and checks, which
-   for it require logits and greedy tokens equal to the plain run's.
+   for it require logits and greedy tokens equal to the plain run's. Then
+   the Q8 arm: the body calibrated on the card (8x128 seeded token ids) and
+   quantized QLINEAR (int8 per-channel weights, static uint8 activations),
+   the int8 weight-only lm_head, fusion (which leaves every QLINEAR site
+   unfused): 126 Q8 and 1 W8 launches per forward, logits and greedy tokens
+   equal to the run with only Q8 plain. Then the MLP arm: the W4 tree
+   through ``mlp_megakernel=True``, 18 fused-MLP, 36 W4 and 1 W8 launches
+   per decode step (prefill at M=4096 stays on W4), prefill logits within
+   5% of the plain run.
 5. Rates: decode tokens/s for the quantized arm, the same with flash decode
-   (``fused_attention=True``), the W4A8 arm and an unquantized bf16 arm, by
+   (``fused_attention=True``), the W4A8 arm, the Q8 arm, the quantized arm
+   with the fused MLP and an unquantized bf16 arm, by
    the slope between two step counts timed with CUDA events; the arms take
    turns, and each reports the median of 5 samples.
 6. Window scoring: ``perplexity_from_tokens`` of the phase-4 model over a
@@ -50,7 +65,7 @@ Phases (any failed check exits non-zero; each prints its seconds):
    prints ``score_ppl`` for the float, int8 and int4 caches and steps/s.
 
 The run ends by counting the kernels the activation quantizer and one whole
-site launch, and by profiling decode steps of the W4 and the A8 arm
+site launch, and by profiling decode steps of the W4, A8, Q8 and MLP arms
 (``torch.profiler``: launches, device busy time, idle share). The line
 before the last is a JSON object
 of per-kernel results, each with the least time the card could take for the
@@ -326,6 +341,169 @@ def run_kernel_checks(gen) -> dict:
     return results
 
 
+def q8_site(K: int, N: int, dtype: str, symmetric: bool, strategy: str, gen,
+            with_bias: bool = False):
+    """A QLINEAR site on the card: RTN weights, static uint8 activation
+    qparams from a sample's ranges by the calibrator's minmax rule, and an
+    int32 bias."""
+    from onnx_quantize_tpu_torch.algorithms import quantize_bias, rtn_quantize
+    from onnx_quantize_tpu_torch.core.dtypes import QuantType
+    from onnx_quantize_tpu_torch.core.enums import QFormat
+    from onnx_quantize_tpu_torch.core.numerics import compute_qparams
+    from onnx_quantize_tpu_torch.core.qconfig import QWeightArgs
+    from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QBias, make_qtensor
+
+    args = QWeightArgs(dtype=dtype, group_size=-1 if strategy == "channel" else None,
+                       symmetric=symmetric)
+    w = 0.1 * torch.randn((K, N), generator=gen, device="cuda")
+    x = torch.randn((64, K), generator=gen, device="cuda")
+    q, s, z = rtn_quantize(w, args.dtype, args.strategy, -1, symmetric, False)
+
+    def qparams(t):
+        return compute_qparams(t.min().clamp(max=0.0), t.max().clamp(min=0.0), QuantType.QUInt8,
+                               False, False)
+
+    (xs, xz), (ys, yz) = qparams(x), qparams(x @ w)
+    static = ActQuantSpec(mode="static", dtype="uint8")
+    qt = make_qtensor(q, s, z, quant_type=args.dtype, strategy=args.strategy, group_size=-1,
+                      symmetric=symmetric, reduce_range=False, fmt=QFormat.QLINEAR,
+                      input_quant=static, output_quant=static, input_scale=xs,
+                      input_zero_point=xz, output_scale=ys, output_zero_point=yz)
+    bias = None
+    if with_bias:
+        b_q, b_s, _ = quantize_bias(0.1 * torch.randn((N,), generator=gen, device="cuda"), xs, s)
+        bias = QBias(b_q, b_s, torch.zeros((), dtype=torch.int32, device="cuda"), "int32")
+    return qt, bias
+
+
+# name, K, N, weight dtype, symmetric, strategy, rows of M, bias, timed: one
+# Gemma-3-270M layer's seven QLINEAR sites (unfused: static output scales
+# differ by site), then odd shapes: a ragged K chunk with zero points and a
+# per-tensor scale, K past the plain version's 256-row chunks, uint8
+# symmetric (zp 128, shifted), int8 asymmetric, and 4 columns per thread.
+Q8_CASES = [
+    ("q", 640, 1024, "int8", True, "channel", (32, 4096), False, True),
+    ("k", 640, 256, "int8", True, "channel", (32, 4096), False, True),
+    ("v", 640, 256, "int8", True, "channel", (32, 4096), False, True),
+    ("o", 1024, 640, "int8", True, "channel", (32, 4096), False, True),
+    ("gate", 640, 2048, "int8", True, "channel", (32, 4096), False, True),
+    ("up", 640, 2048, "int8", True, "channel", (32, 4096), False, True),
+    ("down", 2048, 640, "int8", True, "channel", (32, 4096), False, True),
+    ("odd_q8_u8_asym_tensor_k100_bias", 100, 128, "uint8", False, "tensor", (7, 37), True, False),
+    ("odd_q8_i8_k1000_bias", 1000, 256, "int8", True, "channel", (33,), True, False),
+    ("odd_q8_u8_sym_k1000", 1000, 384, "uint8", True, "channel", (5, 65), False, False),
+    ("odd_q8_i8_asym_tensor", 640, 128, "int8", False, "tensor", (3,), True, False),
+    ("odd_q8_u8_asym_n40064", 640, 40064, "uint8", False, "channel", (33,), False, False),
+]
+
+
+def run_q8_checks(gen) -> dict:
+    """Q8 against its plain version (bit for bit), and one layer's seven
+    sites at M=32 timed beside ``torch._int_mm`` on their int32 core."""
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_q8
+
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    work = [0, 0]
+    for name, K, N, dtype, sym, strat, rows, with_bias, timed in Q8_CASES:
+        qt, bias = q8_site(K, N, dtype, sym, strat, gen, with_bias)
+        for M in rows:
+            for xdt in (torch.bfloat16, torch.float32):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+                ops = matmul_q8.q8_operands(x, qt, bias)
+                y = matmul_q8.q8_matmul(*ops)
+                ref = matmul_q8.q8_matmul_plain(*ops)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                check(bool(torch.isfinite(y).all()), f"q8 {name} M={M} {xdt}: non-finite output")
+                check(err == 0.0, f"q8 {name} M={M} {xdt}: max abs err {err:.3e}, not 0")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                line = f"kernel q8 {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e}"
+                if timed and M == 32 and xdt == torch.bfloat16:
+                    ms = cuda_time_ms(lambda: matmul_q8.q8_matmul(*ops), 50)
+                    plain_ms = cuda_time_ms(lambda: matmul_q8.q8_matmul_plain(*ops), 50)
+                    # The int32 core on the same codes: x quantized as the
+                    # kernel does, int8 weights as stored.
+                    c = ops[3]
+                    x_q = (torch.clamp(torch.round(x.float() / c.fparams[0]).to(torch.int32)
+                                       + c.iparams[0], *c.iq) - c.x_shift).to(torch.int8)
+                    lib_ms = cuda_time_ms(lambda: torch._int_mm(x_q, qt.data), 50)
+                    exact = (x_q.double() @ qt.data.double()).to(torch.int32)
+                    check(torch.equal(torch._int_mm(x_q, qt.data), exact),
+                          f"q8 {name}: _int_mm disagrees with the exact integer dot")
+                    res["ms"] += ms
+                    res["plain_ms"] += plain_ms
+                    res["library_ms"] += lib_ms
+                    work[0] += nbytes(x, qt.data, c.wsum, c.wzp, c.req, y)
+                    work[1] += 2 * M * K * N
+                    line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f}"
+                print(line, flush=True)
+    res["bound_ms"], res["bound_by"] = bound(*work, "int8")
+    return res
+
+
+# name, K, intermediate, dtype, group size, symmetric, rows of M, timed: the
+# 270M MLP (M=256 runs the kernel past the predicate's cap at these widths),
+# and a ragged gate-up group (K=192, g64: 3 groups padded to 4) in int4.
+MLP_CASES = [
+    ("mlp_270m", 640, 2048, "uint4", 128, False, (32, 1, 256), True),
+    ("odd_mlp_k192_i256_g64_int4", 192, 256, "int4", 64, True, (5,), False),
+]
+# Why: the kernel and its plain version (the unfused chain of the W4 plain
+# version) form the same float32 products, summed in another order; in
+# float32 1e-4 of max|y| bounds that. In bfloat16, act rounds to bf16
+# between the products, and an h one float32 ulp apart can round the other
+# way (2^-8 relative on one act element): 1e-2 of max|y|.
+MLP_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def run_mlp_checks(gen) -> dict:
+    """The fused MLP against its plain version, timed at M=32 (bf16) beside
+    the unfused W4 gate_up, GeGLU and W4 down it replaces."""
+    from onnx_quantize_tpu_torch.ops.kernels import mlp_w4, pad_to_multiple
+    from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import w4_matmul
+
+    res = {"max_abs_err": 0.0, "library_ms": None}
+    for name, K, inter, dtype, gs, sym, rows, timed in MLP_CASES:
+        gu = random_qtensor(K, 2 * inter, dtype, gs, sym, gen)
+        dn = random_qtensor(inter, K, dtype, gs, sym, gen)
+        for M in rows:
+            for xdt in (torch.bfloat16, torch.float32):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+                ops, kw = mlp_w4.mlp_w4_operands(x, gu, dn)
+                y = mlp_w4.mlp_w4(*ops, **kw)
+                again = mlp_w4.mlp_w4(*ops, **kw)
+                ref = mlp_w4.mlp_w4_plain(*ops, **kw)
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                check(bool(torch.isfinite(y).all()), f"{name} M={M} {xdt}: non-finite output")
+                check(torch.equal(y, again), f"{name} M={M} {xdt}: two launches differ")
+                check(err <= MLP_REL_TOL[xdt] * scale,
+                      f"{name} M={M} {xdt}: max abs err {err:.3e} > {MLP_REL_TOL[xdt]} * "
+                      f"{scale:.3e}")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                line = f"kernel mlp_w4 {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e}"
+                if timed and M == 32 and xdt == torch.bfloat16:
+                    x2d, wg, sg, zg, wd, sd, zd = ops
+
+                    def unfused():
+                        h = w4_matmul(x2d, wg, sg, zg, gs=kw["gs_g"], signed=kw["signed_g"])
+                        act = torch.nn.functional.gelu(h[:, :inter], approximate="tanh")
+                        act = (act * h[:, inter:]).to(x2d.dtype)
+                        act = pad_to_multiple(act, 1, 2 * wd.shape[0]).contiguous()
+                        return w4_matmul(act, wd, sd, zd, gs=kw["gs_d"], signed=kw["signed_d"])
+
+                    res["ms"] = cuda_time_ms(lambda: mlp_w4.mlp_w4(*ops, **kw), 50)
+                    res["plain_ms"] = cuda_time_ms(lambda: mlp_w4.mlp_w4_plain(*ops, **kw), 50)
+                    res["unfused_ms"] = cuda_time_ms(unfused, 50)
+                    res["bound_ms"], res["bound_by"] = bound(
+                        nbytes(*ops, y), 2 * M * K * 2 * inter + 2 * M * inter * K, "bf16")
+                    line += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+                             f"unfused_w4_pair_ms={res['unfused_ms']:.4f}")
+                print(line, flush=True)
+    return res
+
+
 # Why these tolerances: flash decode reads int8 codes and float32 scales and
 # forms the same float32 products as its plain version, summed in another
 # order (and softmax taken online): 1e-4 of the output's largest magnitude.
@@ -498,16 +676,20 @@ def plain_kernels(only=None):
     from onnx_quantize_tpu_torch.ops.kernels import (
         flash_attention,
         flash_decode,
+        matmul_q8,
         matmul_w4,
         matmul_w4a8,
         matmul_w8,
         matmul_w8a8,
+        mlp_w4,
     )
 
     swaps = [(matmul_w4, "w4_matmul", matmul_w4.w4_dequant_matmul_plain),
              (matmul_w8, "w8_matmul", matmul_w8.w8_dequant_matmul_plain),
              (matmul_w4a8, "w4a8_matmul", matmul_w4a8.w4a8_matmul_plain),
              (matmul_w8a8, "w8a8_matmul", matmul_w8a8.w8a8_matmul_plain),
+             (matmul_q8, "q8_matmul", matmul_q8.q8_matmul_plain),
+             (mlp_w4, "mlp_w4", mlp_w4.mlp_w4_plain),
              (flash_attention, "flash_attention", flash_attention.flash_attention_reference),
              (flash_decode, "flash_decode_int8", flash_decode.flash_decode_int8_reference)]
     if only is not None:
@@ -523,6 +705,11 @@ def plain_kernels(only=None):
 
 
 def build_models():
+    """The Gemma-3-270M bf16 model from a seeded init, and its W4 tree (W4 g128
+    body, int8 per-channel lm_head, fused), float tree (fused) and Q8 tree
+    (QLINEAR body calibrated on the card, int8 weight-only lm_head, fused:
+    the QLINEAR sites stay unfused). Returns (model, W4, float, Q8 trees,
+    calibration and quantization seconds)."""
     import onnx_quantize_tpu_torch as oqt
     from onnx_quantize_tpu_torch.models.gemma3 import (
         GEMMA3_270M,
@@ -539,31 +726,51 @@ def build_models():
                        ignore=[r"^layers\."])
     qparams, _ = oqt.quantize(model, params, body)
     qparams, _ = oqt.quantize(model, qparams, head)
-    return model, fuse_gemma3_projections(qparams), fuse_gemma3_projections(params)
+    # The reference's body_q8 arm (scripts/tpu_bench_ablate.py:56-71, 83-88).
+    static = oqt.QActivationArgs(dtype="uint8", is_static=True)
+    calib = np.random.default_rng(7).integers(1, cfg.vocab_size, size=(8, 128)).astype(np.int32)
+    q8 = oqt.QConfig(weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+                     input_activations=static, output_activations=static, format="qlinear",
+                     calibration_data=calib, ignore=["lm_head"])
+    (q8params, plan), q8_s = timed(lambda: oqt.quantize(model, params, q8))
+    check(len(plan) == 7 * cfg.num_layers
+          and all(e.input_scale.device.type == "cuda" for e in plan),
+          "Q8 calibration: a site without calibrated qparams on the card")
+    q8params, _ = oqt.quantize(model, q8params, head)
+    return (model, fuse_gemma3_projections(qparams), fuse_gemma3_projections(params),
+            fuse_gemma3_projections(q8params), q8_s)
 
 
-def run_main_path(model, qparams, body: str, head: str):
-    """Prefill, greedy decode and generate through ``body`` kernels on every
-    transformer site and the ``head`` kernel on the lm_head, and no other
-    kernel; prefill logits against the plain-version run. Returns (launches,
-    prefill logits)."""
+def run_main_path(model, qparams, label: str, prefill_want: dict, step_want: dict,
+                  exact: bool = False, plain_only=None, mega: bool = False):
+    """Prefill, greedy decode and generate, launching exactly ``prefill_want``
+    kernels (name -> count) per prefill and ``step_want`` per decode step, and
+    no other; prefill logits and greedy tokens against the same engine with
+    the kernels (those of the ``plain_only`` modules, or all) swapped for
+    their plain versions: equal when ``exact``, else within 5% of the largest
+    logit. ``mega`` arms the fused MLP. Returns (launches, prefill logits)."""
     from onnx_quantize_tpu_torch.engine import InferenceEngine
 
     cfg = model.cfg
     B, T, steps = 32, 128, 64
-    sites_per_step = 4 * cfg.num_layers  # qkv, o, gate_up, down per layer
     engine = InferenceEngine(model, qparams, max_batch=B, max_seq=512, kv_quant=True,
-                             dtype=torch.bfloat16)
+                             dtype=torch.bfloat16, mlp_megakernel=mega)
     rng = np.random.default_rng(SEED)
     ids = rng.integers(1, cfg.vocab_size, size=(B, T)).astype(np.int32)
     lengths = np.full((B,), T, np.int32)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (5, 77, 128)]
     new_tokens = 8
 
-    def expect(n_steps: int) -> dict:
+    def expect(prefills: int, n_steps: int) -> dict:
         want = {name: 0 for name in kernel_modules()}
-        want[body], want[head] = sites_per_step * n_steps, n_steps
+        for name, n in prefill_want.items():
+            want[name] += prefills * n
+        for name, n in step_want.items():
+            want[name] += n_steps * n
         return want
+
+    def launched(counts: dict) -> dict:
+        return {k: v for k, v in counts.items() if v}
 
     def since(before: dict) -> dict:
         return {k: v - before[k] for k, v in kernel_counts().items()}
@@ -581,18 +788,17 @@ def run_main_path(model, qparams, body: str, head: str):
     gen_launches = since(after_decode)
     total = kernel_counts()
 
-    check(after_prefill == expect(1), f"prefill launched {after_prefill}, expected "
-          f"{sites_per_step} {body} and 1 {head} kernels and no other")
-    check(decode_launches == expect(steps), f"{steps} decode steps launched {decode_launches}, "
-          f"expected {sites_per_step} {body} and 1 {head} per step and no other")
-    gen_steps = new_tokens  # one prefill + (new_tokens - 1) decode steps
-    check(gen_launches == expect(gen_steps), f"generate launched {gen_launches}")
-    print(f"main path ({body} body, {head} head) launches: prefill "
-          f"({after_prefill[body]}, {after_prefill[head]}), decode x{steps} "
-          f"({decode_launches[body]}, {decode_launches[head]}), generate "
-          f"({gen_launches[body]}, {gen_launches[head]}), per decode step "
-          f"({decode_launches[body] // steps}, {decode_launches[head] // steps}); "
-          f"other kernels none", flush=True)
+    check(after_prefill == expect(1, 0), f"{label} prefill launched "
+          f"{launched(after_prefill)}, expected {prefill_want} and no other")
+    check(decode_launches == expect(0, steps), f"{label}: {steps} decode steps launched "
+          f"{launched(decode_launches)}, expected {step_want} per step and no other")
+    # generate: one prefill + (new_tokens - 1) decode steps.
+    check(gen_launches == expect(1, new_tokens - 1),
+          f"{label} generate launched {launched(gen_launches)}")
+    per_step = {k: v // steps for k, v in launched(decode_launches).items()}
+    print(f"main path ({label}) launches: prefill {launched(after_prefill)}, decode x{steps} "
+          f"{launched(decode_launches)} ({per_step} per step), generate "
+          f"{launched(gen_launches)}; other kernels none", flush=True)
 
     check(tuple(logits.shape) == (B, cfg.vocab_size), f"prefill logits shape {logits.shape}")
     check(bool(torch.isfinite(logits.float()).all()), "prefill logits not finite")
@@ -602,47 +808,59 @@ def run_main_path(model, qparams, body: str, head: str):
     check([len(o) for o in outputs] == [new_tokens] * 3, "generate output lengths")
     check(all(0 <= t < cfg.vocab_size for o in outputs for t in o), "generate token range")
 
+    # One decode step's logits after the prefill, printed against the plain run.
+    _, step_logits = engine.decode(engine.prefill(engine.new_cache(), ids, lengths)[0], first)
+
     # The same engine with the kernels swapped for their plain versions.
     cmp_steps = 16
-    with plain_kernels():
+    counts = kernel_counts()
+    with plain_kernels(plain_only):
         plain_cache, plain_logits = engine.prefill(engine.new_cache(), ids, lengths)
+        _, plain_step_logits = engine.decode(
+            engine.prefill(engine.new_cache(), ids, lengths)[0], first)
         _, plain_tokens = engine.decode_multi(plain_cache, first, steps=cmp_steps)
     torch.cuda.synchronize()
-    check(kernel_counts() == total, "the plain-version run launched kernels")
+    if plain_only is None:
+        check(kernel_counts() == counts, "the plain-version run launched kernels")
     diff = (logits.float() - plain_logits.float()).abs()
     peak = plain_logits.float().abs().max().item()
     # bf16 stream: W4/W8 and their plain versions differ by float32 summation
     # order, which can flip a bf16 rounding (2^-8 relative) of a site output;
     # such flips pass through 18 layers. 5% of the largest logit bounds that.
-    # The A8 kernels agree with their plain versions bit for bit (else a
-    # flipped bf16 rounding moves int8 activation codes of later sites and
-    # compounds: 7.6% of the largest logit when they summed in another
-    # order), and nothing else on this path differs between the two runs, so
-    # their arm must match exactly: equal logits and equal greedy tokens.
-    exact = body == "w4a8"
-    tol = 1e-6 * peak if exact else 0.05 * peak
-    print(f"prefill logits kernel vs plain ({body}): max_abs_diff={diff.max().item():.4e} "
+    # The A8 and Q8 kernels agree with their plain versions bit for bit (else
+    # a flipped bf16 rounding moves int8 activation codes of later sites and
+    # compounds: 7.6% of the largest logit when the A8 kernels summed in
+    # another order), and nothing else differs between the two runs, so
+    # their arms must match exactly: equal logits and equal greedy tokens.
+    tol = 0.0 if exact else 0.05 * peak
+    print(f"prefill logits kernel vs plain ({label}): max_abs_diff={diff.max().item():.4e} "
           f"mean_abs_diff={diff.mean().item():.4e} max|logit|={peak:.4e} tol={tol:.4e}",
           flush=True)
-    check(diff.max().item() <= tol, "prefill logits through the kernels disagree with plain")
+    check(diff.max().item() <= tol, f"{label} prefill logits through the kernels disagree "
+                                    "with plain")
+    step_diff = (step_logits.float() - plain_step_logits.float()).abs()
+    print(f"decode-step logits kernel vs plain ({label}, not gated): max_abs_diff="
+          f"{step_diff.max().item():.4e} mean_abs_diff={step_diff.mean().item():.4e} "
+          f"max|logit|={plain_step_logits.float().abs().max().item():.4e}", flush=True)
     agree = (generated[:, :cmp_steps] == plain_tokens).float().mean().item()
-    print(f"greedy tokens equal over {cmp_steps} steps, kernel vs plain ({body}): {agree:.4f}",
+    print(f"greedy tokens equal over {cmp_steps} steps, kernel vs plain ({label}): {agree:.4f}",
           flush=True)
-    check(not exact or agree == 1.0, f"{body} greedy tokens differ from the plain run's")
+    check(not exact or agree == 1.0, f"{label} greedy tokens differ from the plain run's")
     return total, logits
 
 
 # -- phase 5: decode rates -------------------------------------------------------
 
-def decode_arm(model, params, kv_quant: bool, fused: bool = False, lo: int = 16, hi: int = 48):
-    """A prefilled B=32 engine (``fused``: flash decode over its int8 cache);
-    each call of the returned function times one sample of decode tokens/s,
-    the slope between ``lo`` and ``hi`` steps."""
+def decode_arm(model, params, kv_quant: bool, fused: bool = False, mega: bool = False,
+               lo: int = 16, hi: int = 48):
+    """A prefilled B=32 engine (``fused``: flash decode over its int8 cache;
+    ``mega``: the fused MLP); each call of the returned function times one
+    sample of decode tokens/s, the slope between ``lo`` and ``hi`` steps."""
     from onnx_quantize_tpu_torch.engine import InferenceEngine
 
     B, T = 32, 128
     engine = InferenceEngine(model, params, max_batch=B, max_seq=512, kv_quant=kv_quant,
-                             dtype=torch.bfloat16, fused_attention=fused)
+                             dtype=torch.bfloat16, fused_attention=fused, mlp_megakernel=mega)
     ids = np.random.default_rng(SEED).integers(1, model.cfg.vocab_size, size=(B, T))
     cache, logits = engine.prefill(engine.new_cache(), ids, np.full((B,), T, np.int32))
     tokens = torch.argmax(logits, dim=-1)
@@ -673,14 +891,17 @@ def kernel_modules() -> dict:
     from onnx_quantize_tpu_torch.ops.kernels import (
         flash_attention,
         flash_decode,
+        matmul_q8,
         matmul_w4,
         matmul_w4a8,
         matmul_w8,
         matmul_w8a8,
+        mlp_w4,
     )
 
     return {"w4": matmul_w4, "w8": matmul_w8, "w4a8": matmul_w4a8, "w8a8": matmul_w8a8,
-            "flash_attention": flash_attention, "flash_decode": flash_decode}
+            "q8": matmul_q8, "mlp_w4": mlp_w4, "flash_attention": flash_attention,
+            "flash_decode": flash_decode}
 
 
 def kernel_counts() -> dict:
@@ -706,22 +927,23 @@ def count_launches(fn) -> tuple[int, list[str]]:
     return len(names), [n[:40] for n in names]
 
 
-MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w8)_kernel\b")
+MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w8|q8|mlp_w4)_kernel\b")
 
 
-def profile_decode(model, params, steps: int = 4) -> dict:
+def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
     """Per decode step of a prefilled B=32 engine (int8 KV cache, bf16), over
     ``steps`` greedy steps under ``torch.profiler``: device operations
     launched, device busy ms (their summed durations; one stream), wall ms
     (profiled, so longer than unprofiled), the idle share 1 - busy/wall, and
-    the busy ms of the quantized-matmul kernels and of everything else."""
+    the busy ms of the quantized-matmul kernels (the fused MLP among them)
+    and of everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     from onnx_quantize_tpu_torch.engine import InferenceEngine
 
     B, T = 32, 128
     engine = InferenceEngine(model, params, max_batch=B, max_seq=512, kv_quant=True,
-                             dtype=torch.bfloat16)
+                             dtype=torch.bfloat16, mlp_megakernel=mega)
     ids = np.random.default_rng(SEED).integers(1, model.cfg.vocab_size, size=(B, T))
     cache, logits = engine.prefill(engine.new_cache(), ids, np.full((B,), T, np.int32))
     tokens = torch.argmax(logits, dim=-1)
@@ -916,45 +1138,74 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernel_results = run_kernel_checks(gen)
     kernel_results.update(run_attention_checks(gen))
+    kernel_results["q8"] = run_q8_checks(gen)
+    kernel_results["mlp_w4"] = run_mlp_checks(gen)
     phase_done("3 kernels")
 
-    # Phase 4: the main path, W4 arm then A8 arm.
+    # Phase 4: the main path: W4, A8, Q8 and MLP arms.
     from onnx_quantize_tpu_torch.ops import convert_to_w4a8
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_q8
 
-    model, qparams, fparams = build_models()
-    w4_launches, w4_logits = run_main_path(model, qparams, "w4", "w8")
+    model, qparams, fparams, q8params, q8_s = build_models()
+    print(f"Q8 tree: calibration (8x128 ids, on the card) and QLINEAR quantization of 126 "
+          f"sites in {q8_s:.2f} s", flush=True)
+    layers = model.cfg.num_layers
+    w4_sites = {"w4": 4 * layers, "w8": 1}  # qkv, o, gate_up, down; the lm_head
+    w4_launches, w4_logits = run_main_path(model, qparams, "W4 body, W8 head", w4_sites,
+                                           w4_sites)
     # bench's tree with the whole of it converted: W4A8 on the body and W8A8 on
     # the lm_head (the TPU ablation converted the body only).
     a8params = convert_to_w4a8(qparams)
-    a8_launches, a8_logits = run_main_path(model, a8params, "w4a8", "w8a8")
+    a8_sites = {"w4a8": 4 * layers, "w8a8": 1}
+    a8_launches, a8_logits = run_main_path(model, a8params, "W4A8 body, W8A8 head", a8_sites,
+                                           a8_sites, exact=True)
     print(f"prefill logits A8 vs W4 arm (quantization error, not gated): mean_abs_diff="
           f"{(a8_logits.float() - w4_logits.float()).abs().mean().item():.4e} "
           f"mean|logit|={w4_logits.float().abs().mean().item():.4e}", flush=True)
+    # Q8: seven unfused QLINEAR sites a layer; held to the run with only Q8
+    # plain (the W8 head runs its kernel in both).
+    q8_sites = {"q8": 7 * layers, "w8": 1}
+    q8_launches, q8_logits = run_main_path(model, q8params, "Q8 body, W8 head", q8_sites,
+                                           q8_sites, exact=True, plain_only=[matmul_q8])
+    print(f"prefill logits Q8 vs W4 arm (quantization error, not gated): mean_abs_diff="
+          f"{(q8_logits.float() - w4_logits.float()).abs().mean().item():.4e}", flush=True)
+    # The MLP arm: prefill (M = 4096) fails the fused MLP's M <= 256 and stays
+    # on W4; each decode step (M = 32) runs it in every layer.
+    mlp_launches, _ = run_main_path(model, qparams, "W4 body with fused MLP, W8 head", w4_sites,
+                                    {"mlp_w4": layers, "w4": 2 * layers, "w8": 1}, mega=True)
     launches = {k: w4_launches[k] for k in ("w4", "w8")}
     launches.update({k: a8_launches[k] for k in ("w4a8", "w8a8")})
+    launches["q8"] = q8_launches["q8"]
+    launches["mlp_w4"] = mlp_launches["mlp_w4"]
     phase_done("4 main path")
 
     # Phase 5: rates.
     # The loop is host-bound and the host is shared, so the arms take turns
     # (the order rotates each round) and each reports the median of 5 samples.
-    # The fused arm is the quantized engine with flash decode in every layer.
+    # The fused arm is the quantized engine with flash decode in every layer;
+    # the MLP arm is the quantized engine with the fused MLP.
     arms = {"quantized": decode_arm(model, qparams, kv_quant=True),
             "quantized fused": decode_arm(model, qparams, kv_quant=True, fused=True),
             "w4a8": decode_arm(model, a8params, kv_quant=True),
+            "q8": decode_arm(model, q8params, kv_quant=True),
+            "quantized mlp": decode_arm(model, qparams, kv_quant=True, mega=True),
             "bf16": decode_arm(model, fparams, kv_quant=False)}
     rates = {name: [] for name in arms}
     names = list(arms)
     for r in range(5):
         for name in names[r % len(names):] + names[:r % len(names)]:
             rates[name].append(arms[name]())
-    rate_q, rate_f, rate_a8, rate_bf16 = (float(np.median(rates[n])) for n in names)
+    rate_q, rate_f, rate_a8, rate_q8, rate_mlp, rate_bf16 = (float(np.median(rates[n]))
+                                                             for n in names)
     samples = {n: [round(v, 1) for v in r] for n, r in rates.items()}
     print(f"decode tok/s samples: {json.dumps(samples)}")
     print(f"decode tok/s (B=32, prompt 128, slope 16->48 steps, CUDA events, median of 5) on "
           f"{card}: quantized W4+int8 head+int8 KV {rate_q:.1f}, with flash decode "
-          f"{rate_f:.1f}, W4A8+W8A8 head+int8 KV {rate_a8:.1f}, bf16 {rate_bf16:.1f}, ratio "
+          f"{rate_f:.1f}, W4A8+W8A8 head+int8 KV {rate_a8:.1f}, Q8+int8 head+int8 KV "
+          f"{rate_q8:.1f}, quantized with fused MLP {rate_mlp:.1f}, bf16 {rate_bf16:.1f}, ratio "
           f"quantized/bf16 {rate_q / rate_bf16:.3f}, fused/unfused {rate_f / rate_q:.3f}, "
-          f"w4a8/quantized {rate_a8 / rate_q:.3f}", flush=True)
+          f"w4a8/quantized {rate_a8 / rate_q:.3f}, q8/quantized {rate_q8 / rate_q:.3f}, "
+          f"mlp/quantized {rate_mlp / rate_q:.3f}", flush=True)
     phase_done("5 rates")
 
     # Phase 6: window scoring (the flash-attention path), W4 and A8 models.
@@ -978,13 +1229,18 @@ def main() -> int:
     x = torch.randn((32, 640), generator=gen, device="cuda").to(torch.bfloat16)
     qkv = {arm: prepare_kernel_scales(params)["layers.0"]["attn"]["_fused_qkv"]["w"]
            for arm, params in (("a8", a8params), ("w4", qparams))}
+    q8_q = q8params["layers.0"]["attn"]["q_proj"]["w"]
     counted = {"activation quantizer": count_launches(lambda: quantize_activation_int8(x)),
                "A8 qkv site": count_launches(lambda: quantized_matmul(x, qkv["a8"])),
-               "W4 qkv site": count_launches(lambda: quantized_matmul(x, qkv["w4"]))}
+               "W4 qkv site": count_launches(lambda: quantized_matmul(x, qkv["w4"])),
+               "Q8 q site": count_launches(lambda: quantized_matmul(x, q8_q))}
     print("device launches per call at M=32, K=640, bf16 x (torch.profiler): "
           + ", ".join(f"{k} {v[0]} ({', '.join(v[1])})" for k, v in counted.items()), flush=True)
-    for arm, params in (("W4+int8 head", qparams), ("W4A8+W8A8 head", a8params)):
-        prof = profile_decode(model, params)
+    for arm, params, mega in (("W4+int8 head", qparams, False),
+                              ("W4A8+W8A8 head", a8params, False),
+                              ("Q8+int8 head", q8params, False),
+                              ("W4+int8 head with fused MLP", qparams, True)):
+        prof = profile_decode(model, params, mega=mega)
         print(f"decode step profile, {arm} (B=32, int8 KV, torch.profiler, mean of 4 steps) on "
               f"{card}: launches {prof['launches']:.0f}, device busy {prof['busy_ms']:.3f} ms "
               f"(quantized matmul kernels {prof['matmul_ms']:.3f}, other "
@@ -1006,6 +1262,10 @@ def main() -> int:
                             "onnx_quantize_tpu/ops/kernels/flash_attention.py:30"),
         "flash_decode": ("flash_decode", "onnx_quantize_tpu_torch/csrc/flash_decode.cu",
                          "onnx_quantize_tpu/ops/kernels/flash_decode.py:38"),
+        "q8": ("q8_matmul", "onnx_quantize_tpu_torch/csrc/matmul_q8.cu",
+               "onnx_quantize_tpu/ops/kernels/matmul_q8.py:29"),
+        "mlp_w4": ("mlp_w4", "onnx_quantize_tpu_torch/csrc/mlp_w4.cu",
+                   "onnx_quantize_tpu/ops/kernels/mlp_w4.py:78"),
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():

@@ -2,8 +2,9 @@
 
 Counterpart of ``onnx_quantize_tpu/algorithms/rtn.py``: layout preprocess ->
 qparams -> quantize -> layout postprocess, with scale/zp squeezed for
-tensor/channel strategies and kept ``(rows, 1)`` for the group strategy.
-Runs on the device the weight lives on.
+tensor/channel strategies and kept ``(rows, 1)`` for the group strategy; and
+the int32 bias quantizer of the QLINEAR format (``bias_scale = w_scale *
+x_scale``, zero point 0). Runs on the device the weight lives on.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from onnx_quantize_tpu_torch.core.numerics import (
     quantize_from_qparams,
 )
 
-__all__ = ["rtn_quantize"]
+__all__ = ["rtn_quantize", "quantize_bias"]
 
 
 def rtn_quantize(
@@ -47,3 +48,19 @@ def rtn_quantize(
         scale, zp = scale.squeeze(), zp.squeeze()
     q = postprocess_array(q, array.shape, strategy, group_size)
     return q.contiguous(), scale, zp
+
+
+def quantize_bias(bias: torch.Tensor, input_scale, weight_scale):
+    """Quantize a float32 bias vector to int32 with ``bias_scale = w_scale *
+    x_scale`` and zero point 0 (int32, asymmetric full range). Returns
+    ``(q_bias, bias_scale, 0)``."""
+    assert bias.ndim == 1 and bias.dtype == torch.float32
+    input_scale = torch.as_tensor(input_scale, device=bias.device)
+    weight_scale = torch.as_tensor(weight_scale, device=bias.device)
+    assert input_scale.numel() == 1
+    assert weight_scale.dtype == torch.float32
+    assert weight_scale.numel() == 1 or weight_scale.numel() == bias.numel()
+    bias_scale = weight_scale * input_scale
+    qbias = quantize_from_qparams(bias, bias_scale, 0, QuantType.QInt32, is_symmetric=False,
+                                  reduce_range=False)
+    return qbias, bias_scale, 0

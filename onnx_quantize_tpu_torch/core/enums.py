@@ -22,8 +22,8 @@ class QuantizationStrategy(str, enum.Enum):
 class QFormat(str, enum.Enum):
     """Quantized-execution format.
 
-    QDQ: weights stored quantized, dequantized inside the matmul. QLINEAR (full
-    integer compute) is not ported yet; see ROADMAP.md, Queue B #7.
+    QDQ: weights stored quantized, dequantized inside the matmul. QLINEAR: full
+    integer compute with static input and output activations (the Q8 kernel).
     """
 
     QDQ = "qdq"

@@ -11,9 +11,10 @@ Capturing the decode step in a CUDA graph is later work.
 Works with float or quantized params (the Linear sites dispatch to the
 Hopper kernels on CUDA) and a float, int8 or int4 KV cache. With
 ``fused_attention=True`` every one-token forward over the int8 cache runs
-the flash-decode kernel. ``score_nll``/``score_ppl`` score token rows
-teacher-forced through the decode path, so the cache's quantization error is
-part of the result.
+the flash-decode kernel; with ``mlp_megakernel=True`` every decode-sized MLP
+over packed W4 weights runs the fused MLP kernel. ``score_nll``/``score_ppl``
+score token rows teacher-forced through the decode path, so the cache's
+quantization error is part of the result.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class InferenceEngine:
 
     def __init__(self, model, params: dict, max_batch: int = 8, max_seq: int = 2048,
                  kv_quant: bool | str = False, dtype: torch.dtype = torch.float32,
-                 fused_attention: bool | str = "auto"):
+                 fused_attention: bool | str = "auto", mlp_megakernel: bool | str = "auto"):
         cfg = model.cfg
         # kv_quant: False | True/"int8" | "int4" (packed nibbles, half the
         # cache bytes again; see kv_cache.py).
@@ -96,6 +97,13 @@ class InferenceEngine:
                 f"{kv_quant_arg!r} [{kv_bits}-bit], "
                 f"head_dim={cfg.head_dim}, max_seq={max_seq})"
             )
+        # The fused W4 MLP (ops/kernels/mlp_w4.py) takes each eligible site
+        # (packed-W4 pair, M <= 256) when armed. The reference arms "auto" on
+        # a TPU only; the port keeps "auto" off until the H100 shows a gain
+        # (PERF.md). The switch lives on the model's MLPs, as in the
+        # reference; the engine sets it before each of its forwards, so two
+        # engines over one model keep their own settings.
+        self._mega = mlp_megakernel != "auto" and bool(mlp_megakernel)
         self.model = model
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -140,6 +148,8 @@ class InferenceEngine:
             return read_kv(cache, layer, dtype=self.dtype)
 
         model, params = self.model, self.params
+        for block in getattr(model, "layers", []):
+            block.mlp.use_megakernel = self._mega
         if last_lengths is None:
             return model(params, ids, positions=positions, kv_write=kv_write_fn,
                          kv_positions=kv_positions)

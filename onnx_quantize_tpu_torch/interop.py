@@ -3,9 +3,11 @@
 ``from_jax_params`` walks a param tree of ``onnx_quantize_tpu`` (nested dicts
 whose leaves are arrays, or QTensors read by attribute) and returns the same
 tree over torch tensors, so both packages can run on the same weights. It
-needs no JAX import: array leaves go through ``numpy.asarray``, and a QTensor
-is recognised by its ``data``/``scale``/``zero_point``/``meta`` attributes.
-The tree lands on the CUDA device unless the caller names another.
+needs no JAX import: array leaves go through ``numpy.asarray``, a QTensor is
+recognised by its ``data``/``scale``/``zero_point``/``meta`` attributes (its
+static activation qparams cross with it) and a QBias by
+``data``/``scale``/``zero_point``/``quant_type``. The tree lands on the CUDA
+device unless the caller names another.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QTensor, QTensorMeta
+from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QBias, QTensor, QTensorMeta
 
 __all__ = ["from_jax_params"]
 
@@ -71,8 +73,8 @@ def from_jax_params(tree, device: torch.device | str = "cuda"):
     if _is_jax_qtensor(tree):
         return _qtensor_to_torch(tree, device)
     if _is_jax_qbias(tree):
-        raise NotImplementedError(
-            "Quantized biases (QBias) are not ported to PyTorch yet; see ROADMAP.md, "
-            "Queue A item 10."
-        )
+        return QBias(data=_array_to_torch(tree.data, device),
+                     scale=_array_to_torch(tree.scale, device),
+                     zero_point=_array_to_torch(tree.zero_point, device),
+                     quant_type=str(tree.quant_type))
     return _array_to_torch(tree, device)

@@ -12,9 +12,12 @@ Attention without a cache runs the flash-attention kernel where
 reference arms it on its accelerator only) and einsum and softmax otherwise.
 Over an int8/int4 KV cache it is the scale-folded attend that never
 materializes a dequantized cache, or, for the engine's one-token steps with
-``fused_attention``, the int8 flash-decode kernel. Tensor, context and
-expert parallelism, MoE, the QuaRot rotations and the fused MLP kernel are
-not ported yet (ROADMAP.md, Queue A items 11 and 14, Queue B #8).
+``fused_attention``, the int8 flash-decode kernel. With the engine's
+``mlp_megakernel``, a decode-sized MLP over packed W4 weights runs the fused
+MLP kernel (``ops/kernels/mlp_w4.py``). A forward given a ``Context`` records
+the calibration taps of the unfused sites. Tensor, context and expert
+parallelism, MoE and the QuaRot rotations are not ported yet (ROADMAP.md,
+Queue A items 11 and 14).
 """
 
 from __future__ import annotations
@@ -22,12 +25,14 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from onnx_quantize_tpu_torch.engine.kv_cache import QuantizedKV
 from onnx_quantize_tpu_torch.nn.layers import Embedding, RMSNorm, apply_rope
-from onnx_quantize_tpu_torch.nn.module import Linear, Module, apply_linear
-from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode
+from onnx_quantize_tpu_torch.nn.module import InputSpec, Linear, Module, apply_linear
+from onnx_quantize_tpu_torch.nn.qtensor import QTensor
+from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode, mlp_w4
 from onnx_quantize_tpu_torch.utils import copy_tree
 
 __all__ = ["Gemma3Config", "Gemma3", "GEMMA3_270M", "make_attention_mask",
@@ -121,7 +126,7 @@ class Gemma3Attention(Module):
         # kernel-vs-plain times below T = 512).
         return tileable and T >= 512 and x.device.type == "cuda"
 
-    def _qkv(self, params, x, positions):
+    def _qkv(self, params, x, positions, ctx=None):
         cfg = self.cfg
         B, T, _ = x.shape
         if "_fused_qkv" in params:
@@ -131,9 +136,9 @@ class Gemma3Attention(Module):
             n_k = cfg.num_kv_heads * cfg.head_dim
             q, k, v = qkv[..., :n_q], qkv[..., n_q:n_q + n_k], qkv[..., n_q + n_k:]
         else:
-            q = self.q_proj(params["q_proj"], x)
-            k = self.k_proj(params["k_proj"], x)
-            v = self.v_proj(params["v_proj"], x)
+            q = self.q_proj(params["q_proj"], x, ctx=ctx)
+            k = self.k_proj(params["k_proj"], x, ctx=ctx)
+            v = self.v_proj(params["v_proj"], x, ctx=ctx)
         q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
         k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
@@ -145,7 +150,7 @@ class Gemma3Attention(Module):
         q = q * (cfg.query_pre_attn_scalar ** -0.5)
         return q, k, v
 
-    def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto"):
+    def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto", ctx=None):
         """mask: (B, 1, T, S) additive float32 mask (0 / -1e30).
 
         ``kv_write(layer, k, v)``, from the engine, stores the new rows in the
@@ -157,7 +162,7 @@ class Gemma3Attention(Module):
         cfg = self.cfg
         B, T, _ = x.shape
         window = None if self.is_global else cfg.sliding_window
-        q, k, v = self._qkv(params, x, positions)
+        q, k, v = self._qkv(params, x, positions, ctx)
         if kv_write is not None:
             kv = kv_write(self.layer_idx, k, v)
             if isinstance(kv, QuantizedKV) and kv.use_kernel:
@@ -166,16 +171,17 @@ class Gemma3Attention(Module):
                     q[:, 0].to(torch.float32), kv.k, kv.k_scale, kv.v, kv.v_scale,
                     positions[:, 0].to(torch.int32), window=window)
                 out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
-                return self.o_proj(params["o_proj"], out.to(x.dtype))
+                return self.o_proj(params["o_proj"], out.to(x.dtype), ctx=ctx)
             if isinstance(kv, QuantizedKV):
                 out = _attend(q, kv.k_ints(), kv.v_ints(), mask, cfg, kv.k_scale, kv.v_scale)
-                return self.o_proj(params["o_proj"], out.to(x.dtype))
+                return self.o_proj(params["o_proj"], out.to(x.dtype), ctx=ctx)
             k, v = kv
         elif self._flash_ok(use_flash, x):
             out = flash_attention.flash_attention(q, k, v, sliding_window=window)
-            return self.o_proj(params["o_proj"], out.reshape(B, T, cfg.num_heads * cfg.head_dim))
+            return self.o_proj(params["o_proj"], out.reshape(B, T, cfg.num_heads * cfg.head_dim),
+                               ctx=ctx)
         out = _attend(q, k, v, mask, cfg)
-        return self.o_proj(params["o_proj"], out)
+        return self.o_proj(params["o_proj"], out, ctx=ctx)
 
 
 class Gemma3MLP(Module):
@@ -185,17 +191,26 @@ class Gemma3MLP(Module):
         self.gate_proj = Linear(d, i, use_bias=False, dtype=dt)
         self.up_proj = Linear(d, i, use_bias=False, dtype=dt)
         self.down_proj = Linear(i, d, use_bias=False, dtype=dt)
+        # Set by the engine's ``mlp_megakernel``: a decode-sized MLP over two
+        # packed W4 weights runs as one fused kernel (ops/kernels/mlp_w4.py).
+        self.use_megakernel = False
 
-    def forward(self, params, x):
+    def forward(self, params, x, ctx=None):
         if "_fused_gate_up" in params:
+            w = params["_fused_gate_up"]["w"]
+            dn = params["down_proj"].get("w")
+            if self.use_megakernel and isinstance(w, QTensor) and isinstance(dn, QTensor):
+                M = int(np.prod(x.shape[:-1]))
+                if mlp_w4.mlp_w4_eligible(w, dn, M):
+                    return mlp_w4.mlp_w4_fused(x, w, dn).to(x.dtype)
             gu = apply_linear(params["_fused_gate_up"], x)
             n_gate = gu.shape[-1] // 2
             gate, up = gu[..., :n_gate], gu[..., n_gate:]
         else:
-            gate = self.gate_proj(params["gate_proj"], x)
-            up = self.up_proj(params["up_proj"], x)
+            gate = self.gate_proj(params["gate_proj"], x, ctx=ctx)
+            up = self.up_proj(params["up_proj"], x, ctx=ctx)
         act = torch.nn.functional.gelu(gate, approximate="tanh") * up
-        return self.down_proj(params["down_proj"], act)
+        return self.down_proj(params["down_proj"], act, ctx=ctx)
 
 
 class Gemma3Block(Module):
@@ -209,12 +224,13 @@ class Gemma3Block(Module):
         self.post_attn_norm = RMSNorm(d, eps, dtype=dt)
         self.post_ffn_norm = RMSNorm(d, eps, dtype=dt)
 
-    def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto"):
+    def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto", ctx=None):
         h = self.input_norm(params["input_norm"], x)
-        h = self.attn(params["attn"], h, positions, mask, kv_write=kv_write, use_flash=use_flash)
+        h = self.attn(params["attn"], h, positions, mask, kv_write=kv_write, use_flash=use_flash,
+                      ctx=ctx)
         x = x + self.post_attn_norm(params["post_attn_norm"], h)
         h = self.pre_ffn_norm(params["pre_ffn_norm"], x)
-        h = self.mlp(params["mlp"], h)
+        h = self.mlp(params["mlp"], h, ctx=ctx)
         return x + self.post_ffn_norm(params["post_ffn_norm"], h)
 
 
@@ -269,6 +285,8 @@ class Gemma3(Module):
         # Attention for the full-sequence (no-cache) path: "auto" (the
         # flash-attention kernel on CUDA at T >= 512), True, or False.
         self.use_flash: bool | str = "auto"
+        self.input_specs = [InputSpec("input_ids", (8,), np.int32)]
+        self.finalize()
 
     def init(self, generator: torch.Generator) -> dict:
         params = super().init(generator)
@@ -277,7 +295,7 @@ class Gemma3(Module):
         return params
 
     def hidden_states(self, params, input_ids, positions=None, kv_write=None,
-                      kv_positions=None):
+                      kv_positions=None, ctx=None):
         cfg = self.cfg
         B, T = input_ids.shape
         if positions is None:
@@ -292,10 +310,11 @@ class Gemma3(Module):
         for i, block in enumerate(self.layers):
             mask = mask_global if cfg.is_global_layer(i) else mask_local
             x = block(params[f"layers.{i}"], x, positions, mask, kv_write=kv_write,
-                      use_flash=self.use_flash)
+                      use_flash=self.use_flash, ctx=ctx)
         return self.final_norm(params["final_norm"], x)
 
-    def forward(self, params, input_ids, positions=None, kv_write=None, kv_positions=None):
+    def forward(self, params, input_ids, positions=None, kv_write=None, kv_positions=None,
+                ctx=None):
         x = self.hidden_states(params, input_ids, positions=positions, kv_write=kv_write,
-                               kv_positions=kv_positions)
-        return self.lm_head(params["lm_head"], x)
+                               kv_positions=kv_positions, ctx=ctx)
+        return self.lm_head(params["lm_head"], x, ctx=ctx)

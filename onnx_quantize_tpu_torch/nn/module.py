@@ -11,20 +11,71 @@ Children held in a ``torch.nn.ModuleList`` named ``layers`` appear in the
 param tree under the keys ``layers.0``, ``layers.1``, ... (the JAX package's
 keys), and quantizable sites are named by their dotted path
 (``layers.0.attn.q_proj``).
+
+Calibration taps: a forward given a :class:`Context` whose ``taps`` dict is
+set records each target site's input and output under its site name, as the
+JAX package's taps do.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
+import numpy as np
 import torch
 
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
 from onnx_quantize_tpu_torch.plan import LinearSite
 
-__all__ = ["Module", "Linear"]
+__all__ = ["Context", "InputSpec", "Module", "Linear"]
+
+
+@dataclasses.dataclass(frozen=True)
+class InputSpec:
+    """A declared model input, for random calibration data: ``shape``
+    excludes the batch dimension; integer dtypes (numpy) are sampled in
+    [0, 100), floats from a standard normal."""
+
+    name: str
+    shape: tuple[int, ...]
+    dtype: Any = np.float32
+
+
+@dataclasses.dataclass
+class Context:
+    """Per-call execution context: activation tap collection."""
+
+    taps: dict[str, dict[str, torch.Tensor]] | None = None
+    tap_inputs: bool = False
+    tap_outputs: bool = False
+    tap_names: set[str] | None = None  # None = all target sites
+
+    def collect(self, name: str, kind: str, value: torch.Tensor) -> None:
+        if self.taps is None:
+            return
+        if kind == "input" and not self.tap_inputs:
+            return
+        if kind == "output" and not self.tap_outputs:
+            return
+        if self.tap_names is not None and name not in self.tap_names:
+            return
+        self.taps.setdefault(name, {})[kind] = value
 
 
 class Module(torch.nn.Module):
-    """Base module: ``init(generator)`` builds its params dict."""
+    """Base module: ``init(generator)`` builds its params dict; ``finalize``
+    names every module by its dotted path (idempotent)."""
+
+    # Declared inputs (for random calibration data); models override.
+    input_specs: list[InputSpec] | None = None
+    site_name: str | None = None
+
+    def finalize(self, prefix: str = "") -> "Module":
+        self.site_name = prefix
+        for key, child in self._param_children():
+            child.finalize(f"{prefix}.{key}" if prefix else key)
+        return self
 
     def _param_children(self):
         """(param-tree key, child) pairs, flattening ModuleLists."""
@@ -40,6 +91,8 @@ class Module(torch.nn.Module):
         return {key: child.init(generator) for key, child in self._param_children()}
 
     def linear_sites(self) -> list[LinearSite]:
+        if self.site_name is None:
+            self.finalize()
         sites: list[LinearSite] = []
         self._collect_sites((), sites)
         return sites
@@ -84,8 +137,13 @@ class Linear(Module):
             in_features=self.in_features, out_features=self.out_features,
         ))
 
-    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        return apply_linear(params, x)
+    def forward(self, params: dict, x: torch.Tensor, ctx: Context | None = None) -> torch.Tensor:
+        if ctx is not None:
+            ctx.collect(self.site_name, "input", x)
+        y = apply_linear(params, x)
+        if ctx is not None:
+            ctx.collect(self.site_name, "output", y)
+        return y
 
 
 def apply_linear(params: dict, x: torch.Tensor) -> torch.Tensor:

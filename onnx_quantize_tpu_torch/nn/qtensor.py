@@ -16,7 +16,8 @@ rows (``engine.prepare_kernel_scales``); both layouts are valid everywhere.
 
 Beside the weight, a QTensor carries its site's execution spec: how the
 input and output activations are quantized (:class:`ActQuantSpec`, "none"
-by default) and their static qparams, when there are any.
+by default) and their static qparams, when there are any. A quantized bias
+is a :class:`QBias`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from onnx_quantize_tpu_torch.core.dtypes import QuantType
 from onnx_quantize_tpu_torch.core.enums import QFormat, QuantizationStrategy
 
-__all__ = ["ActQuantSpec", "QTensorMeta", "QTensor", "make_qtensor", "pack_layout",
+__all__ = ["ActQuantSpec", "QTensorMeta", "QTensor", "QBias", "make_qtensor", "pack_layout",
            "unpack_k_pairs"]
 
 
@@ -107,6 +108,29 @@ class QTensor:
             output_scale=move(self.output_scale),
             output_zero_point=move(self.output_zero_point),
         )
+
+
+@dataclasses.dataclass
+class QBias:
+    """Quantized bias vector (per tensor), dequantized at execution.
+
+    QDQ Gemm: RTN per tensor in the weight dtype. QLINEAR Gemm: int32 with
+    ``scale = x_scale * w_scale`` and zero point 0, added to the integer
+    accumulator as it is.
+    """
+
+    data: torch.Tensor  # (N,)
+    scale: torch.Tensor
+    zero_point: torch.Tensor
+    quant_type: str  # QuantType value
+
+    def dequantize(self) -> torch.Tensor:
+        return (self.data.to(torch.float32) - self.zero_point.to(torch.float32)) * (
+            self.scale.to(torch.float32))
+
+    def to(self, device) -> "QBias":
+        return dataclasses.replace(self, data=self.data.to(device), scale=self.scale.to(device),
+                                   zero_point=self.zero_point.to(device))
 
 
 def pack_layout(K: int, strategy: QuantizationStrategy, group_size: int):

@@ -20,7 +20,7 @@ import torch
 
 from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QTensor
 from onnx_quantize_tpu_torch.ops.kernels import select_kernel
-from onnx_quantize_tpu_torch.ops.reference import _qdq_matmul
+from onnx_quantize_tpu_torch.ops.reference import quantized_matmul_ref
 
 __all__ = ["quantized_matmul", "convert_to_w4a8"]
 
@@ -68,4 +68,4 @@ def quantized_matmul(x: torch.Tensor, qt: QTensor, bias=None) -> torch.Tensor:
             f"No Hopper kernel covers the quantized weight {qt.meta}; "
             "see ROADMAP.md, Queue B, for the kernels still to be ported."
         )
-    return _qdq_matmul(x, qt, bias)
+    return quantized_matmul_ref(x, qt, bias)

@@ -3,7 +3,8 @@
 Counterpart of ``onnx_quantize_tpu/ops/kernels/__init__.py``. Matmul kernels
 register by predicate; :func:`select_kernel` returns the first whose predicate
 covers a QTensor's config. The attention kernels (``flash_attention``,
-``flash_decode``) are called by the model directly. Each kernel module holds
+``flash_decode``) and the fused MLP (``mlp_w4``) are called by the model
+directly. Each kernel module holds
 a wrapper that launches its CUDA kernel for CUDA tensors and runs the
 kernel's plain PyTorch version for CPU tensors.
 
@@ -138,6 +139,11 @@ def kernel_library() -> ctypes.CDLL:
         lib.oqt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                             ctypes.POINTER(ctypes.c_longlong), p]
         lib.oqt_flash_attention.restype = i
+        lib.oqt_q8_matmul.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                      i, p]
+        lib.oqt_q8_matmul.restype = i
+        lib.oqt_mlp_w4.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.oqt_mlp_w4.restype = i
         _LIBRARY = lib
     return _LIBRARY
 
@@ -165,12 +171,15 @@ def use_four_columns(N: int, device: torch.device) -> bool:
 
 
 # Import kernel modules so they register. Order matters: the A8 predicates
-# are strict subsets of the weight-only ones, so they register first.
+# are strict subsets of the weight-only ones, so they register first; Q8
+# (QLINEAR) shares no config with the others.
 from onnx_quantize_tpu_torch.ops.kernels import (  # noqa: E402,F401,I001
+    matmul_q8,
     matmul_w4a8,
     matmul_w8a8,
     matmul_w4,
     matmul_w8,
     flash_attention,
     flash_decode,
+    mlp_w4,
 )

@@ -1,9 +1,11 @@
 """QuantPlan: the per-site quantization state.
 
-Counterpart of ``onnx_quantize_tpu/plan.py`` for the weight-only slice: one
-:class:`PlanEntry` per quantizable linear site, keyed by site name, with the
-group size resolved against the site's ``in_features``. Calibrated
-activation state waits with calibration (ROADMAP.md, Queue A item 10).
+Counterpart of ``onnx_quantize_tpu/plan.py``: one :class:`PlanEntry` per
+quantizable linear site, keyed by site name, with the group size resolved
+against the site's ``in_features``, filled by calibration with the site's
+static activation qparams and then stamped with the qconfig the transform
+reads. The raw captured inputs of GPTQ, AWQ and SmoothQuant wait with those
+algorithms (ROADMAP.md, Queue A item 10).
 """
 
 from __future__ import annotations
@@ -12,12 +14,14 @@ import dataclasses
 import logging
 import re
 
+import torch
+
 from onnx_quantize_tpu_torch.core.qconfig import QConfig
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["LinearSite", "PlanEntry", "QuantPlan", "build_plan", "resolve_group_size",
-           "get_target_sites"]
+           "get_target_sites", "stamp_qconfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +46,12 @@ class PlanEntry:
     site: LinearSite
     qconfig: QConfig
     group_size: int | None = None  # resolved against in_features
+
+    # Calibrated static activation qparams (0-dim tensors).
+    input_scale: torch.Tensor | None = None
+    input_zero_point: torch.Tensor | None = None
+    output_scale: torch.Tensor | None = None
+    output_zero_point: torch.Tensor | None = None
 
     @property
     def name(self) -> str:
@@ -98,3 +108,11 @@ def build_plan(sites: list[LinearSite], qconfig: QConfig) -> QuantPlan:
             site=site, qconfig=qconfig, group_size=resolve_group_size(site.in_features, gs)
         )
     return plan
+
+
+def stamp_qconfig(plan: QuantPlan, qconfig: QConfig) -> None:
+    """Stamp the qconfig on every entry, without its calibration data (as the
+    reference stamps it)."""
+    stamped = dataclasses.replace(qconfig, calibration_data=None)
+    for entry in plan:
+        entry.qconfig = stamped

@@ -15,20 +15,23 @@ import pytest
 import torch
 
 import onnx_quantize_tpu_torch as oqt
-from onnx_quantize_tpu_torch.algorithms import rtn_quantize
+from onnx_quantize_tpu_torch.algorithms import quantize_bias, rtn_quantize
+from onnx_quantize_tpu_torch.core.enums import QFormat
 from onnx_quantize_tpu_torch.engine import InferenceEngine, prepare_kernel_scales
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
-from onnx_quantize_tpu_torch.nn.qtensor import make_qtensor
+from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QBias, make_qtensor
 from onnx_quantize_tpu_torch.ops import convert_to_w4a8, quantized_matmul
 from onnx_quantize_tpu_torch.ops.kernels import (
     flash_attention,
     flash_decode,
+    matmul_q8,
     matmul_w4,
     matmul_w4a8,
     matmul_w8,
     matmul_w8a8,
+    mlp_w4,
 )
-from onnx_quantize_tpu_torch.ops.reference import _qdq_matmul
+from onnx_quantize_tpu_torch.ops.reference import _qdq_matmul, _qlinear_matmul
 from onnx_quantize_tpu_torch.plan import resolve_group_size
 from onnx_quantize_tpu_torch.utils import tree_map
 
@@ -345,3 +348,176 @@ def test_attention_kernels_in_model_and_engine_match_cpu():
     assert launched == 7 * model.cfg.num_layers
     assert torch.equal(card_toks, cpu_toks)
     np.testing.assert_allclose(card_logits.numpy(), cpu_logits.numpy(), atol=2e-4, rtol=1e-4)
+
+
+# (weight dtype, symmetric, strategy, K, N, x shape, bias): QLINEAR sites.
+Q8_CASES = [
+    ("int8", True, "channel", 640, 1024, (32,), False),  # the 270M q_proj at decode
+    ("int8", True, "channel", 2048, 640, (4, 33), True),  # down, ragged M, an int32 bias
+    ("uint8", False, "tensor", 100, 128, (7,), True),  # a ragged K chunk, zero points
+    ("uint8", True, "channel", 1000, 256, (65,), False),  # uint8 symmetric (zp 128)
+]
+
+
+def _q8_site(dtype, symmetric, strategy, K, N, with_bias, seed=0):
+    """A QLINEAR site on the CPU: RTN weights, static uint8 activation
+    qparams from the ranges of a sample, and an int32 bias."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((0.1 * rng.standard_normal((K, N))).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((64, K)).astype(np.float32))
+    args = oqt.QWeightArgs(dtype=dtype, group_size=-1 if strategy == "channel" else None,
+                           symmetric=symmetric)
+    q, s, z = rtn_quantize(w, args.dtype, args.strategy, -1, symmetric, False)
+    y = x @ w
+    xs, ys = (x.max() - x.min()) / 255, (y.max() - y.min()) / 255
+    static = ActQuantSpec(mode="static", dtype="uint8")
+    qt = make_qtensor(q, s, z, quant_type=args.dtype, strategy=args.strategy, group_size=-1,
+                      symmetric=symmetric, reduce_range=False, fmt=QFormat.QLINEAR,
+                      input_quant=static, output_quant=static, input_scale=xs,
+                      input_zero_point=torch.tensor(128, dtype=torch.uint8), output_scale=ys,
+                      output_zero_point=torch.round(-y.min() / ys).clamp(0, 255).to(torch.uint8))
+    bias = None
+    if with_bias:
+        b_q, b_s, _ = quantize_bias(0.1 * torch.from_numpy(rng.standard_normal(N).astype(
+            np.float32)), xs, s)
+        bias = QBias(b_q, b_s, torch.tensor(0, dtype=torch.int32), "int32")
+    return qt, bias
+
+
+@pytest.mark.parametrize("case", Q8_CASES, ids=lambda c: f"{c[0]}-{c[2]}-{c[3]}x{c[4]}")
+def test_q8_kernel_bit_equal_to_plain_and_oracle(case):
+    """Integer dots, then one rounded operation at a time in the oracle's
+    order: the kernel equals its plain version on the card and the CPU
+    oracle bit for bit, for float32 and bfloat16 x."""
+    _require_cuda()
+    dtype, sym, strategy, K, N, xshape, with_bias = case
+    qt, bias = _q8_site(dtype, sym, strategy, K, N, with_bias)
+    card_qt, card_bias = qt.to("cuda"), None if bias is None else bias.to("cuda")
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(xshape + (K,)).astype(
+            np.float32)).to(xdt)
+        before = matmul_q8.launches
+        got = quantized_matmul(x.cuda(), card_qt, card_bias)
+        torch.cuda.synchronize()
+        assert matmul_q8.launches == before + 1
+        plain = matmul_q8.q8_matmul_plain(*matmul_q8.q8_operands(x.cuda(), card_qt, card_bias))
+        assert torch.equal(got, plain.reshape(got.shape))
+        assert torch.equal(got.cpu(), _qlinear_matmul(x, qt, bias))
+
+
+# (K, intermediate, group size, dtype, M, x dtype): the 270M MLP at decode,
+# one row, M = 256 (two passes of 32 rows beyond the predicate's cap here),
+# and a ragged gate-up group with signed nibbles.
+MLP_CASES = [
+    (640, 2048, 128, "uint4", 32, torch.bfloat16),
+    (640, 2048, 128, "uint4", 1, torch.float32),
+    (640, 2048, 128, "uint4", 256, torch.bfloat16),
+    (192, 256, 64, "int4", 5, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", MLP_CASES,
+                         ids=lambda c: f"K{c[0]}-I{c[1]}-g{c[2]}-{c[3]}-M{c[4]}-{str(c[5])[6:]}")
+def test_mlp_w4_kernel_matches_plain(case):
+    """The fused MLP against its plain version on the card: float32 within
+    1e-4 of max|y| (summation order); bfloat16 within 1e-2 (act rounds to
+    bf16 between the products, where an input one ulp apart can round the
+    other way). Two launches give the same bits (the reduction is
+    deterministic)."""
+    _require_cuda()
+    K, inter, gs, dtype, M, xdt = case
+    gu = _qtensor(dtype, gs, dtype == "int4", K, 2 * inter, seed=2)
+    dn = _qtensor(dtype, gs, dtype == "int4", inter, K, seed=3)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((M, K)).astype(
+        np.float32)).to("cuda", xdt)
+    ops, kw = mlp_w4.mlp_w4_operands(x, gu.to("cuda"), dn.to("cuda"))
+    before = mlp_w4.launches
+    got = mlp_w4.mlp_w4(*ops, **kw)
+    again = mlp_w4.mlp_w4(*ops, **kw)
+    torch.cuda.synchronize()
+    assert mlp_w4.launches == before + 2
+    assert torch.equal(got, again)
+    want = mlp_w4.mlp_w4_plain(*ops, **kw)
+    tol = 1e-4 if xdt == torch.float32 else 1e-2
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+TINY_Q8 = dict(hidden_size=128, intermediate_size=256, num_layers=2, num_heads=2, num_kv_heads=1,
+               head_dim=128, vocab_size=512)
+
+
+def test_q8_engine_on_card_equals_plain_and_counts_launches(monkeypatch):
+    """A tiny float32 QLINEAR model (every N a multiple of 128), calibrated on
+    the CPU: on the card, one Q8 launch per site (7 a layer) and one W8 for
+    the head per forward; logits and greedy tokens equal to the same engine
+    on the card with Q8 swapped for its plain version."""
+    _require_cuda()
+    cfg = Gemma3Config.tiny(**TINY_Q8)
+    model = Gemma3(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    calib = np.random.default_rng(7).integers(1, cfg.vocab_size, (8, 16)).astype(np.int32)
+    act = oqt.QActivationArgs(dtype="uint8", is_static=True)
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        input_activations=act, output_activations=act, format="qlinear",
+        calibration_data=calib, ignore=["lm_head"]))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    on_card = tree_map(lambda t: t.to("cuda"), fuse_gemma3_projections(params))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 15)).astype(np.int32)
+    lengths = np.array([12, 9, 15, 3], np.int32)
+
+    def run():
+        eng = InferenceEngine(model, on_card, max_batch=4, max_seq=32, kv_quant=True)
+        before = matmul_q8.launches, matmul_w8.launches
+        cache, logits = eng.prefill(eng.new_cache(), ids, lengths)
+        cache, toks = eng.decode_multi(cache, torch.argmax(logits, -1), steps=6)
+        torch.cuda.synchronize()
+        return logits, toks, (matmul_q8.launches - before[0], matmul_w8.launches - before[1])
+
+    logits, toks, launched = run()
+    assert launched == (7 * cfg.num_layers * 7, 7)
+    monkeypatch.setattr(matmul_q8, "q8_matmul", matmul_q8.q8_matmul_plain)
+    plain_logits, plain_toks, plain_launched = run()
+    assert plain_launched == (0, 7)
+    assert torch.equal(logits, plain_logits) and torch.equal(toks, plain_toks)
+
+
+def test_mlp_megakernel_on_card_counts_launches():
+    """A tiny float32 W4 model with ``mlp_megakernel=True``: per decode step
+    one fused MLP launch per layer, two W4 (qkv, o) and one W8; prefill
+    (M = 60) is eligible too. Logits within 1e-4 of max logit of the CPU
+    run, greedy tokens equal. With "auto", no fused MLP launches."""
+    _require_cuda()
+    cfg = Gemma3Config.tiny(hidden_size=128, intermediate_size=256, num_layers=2, num_heads=2,
+                            num_kv_heads=1, head_dim=64, vocab_size=512)
+    model = Gemma3(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=64), ignore=["lm_head"]))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    params = fuse_gemma3_projections(params)
+    on_card = tree_map(lambda t: t.to("cuda"), params)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 15)).astype(np.int32)
+    lengths = np.array([12, 9, 15, 3], np.int32)
+    modules = (mlp_w4, matmul_w4, matmul_w8)
+
+    def run(p, mega):
+        eng = InferenceEngine(model, p, max_batch=4, max_seq=32, kv_quant=True,
+                              mlp_megakernel=mega)
+        cache, logits = eng.prefill(eng.new_cache(), ids, lengths)
+        before = [m.launches for m in modules]
+        cache, toks = eng.decode_multi(cache, torch.argmax(logits, -1), steps=6)
+        launched = tuple(m.launches - b for m, b in zip(modules, before))
+        return logits.float().cpu(), toks.cpu(), launched
+
+    cpu_logits, cpu_toks, _ = run(params, True)
+    gpu_logits, gpu_toks, launched = run(on_card, True)
+    assert launched == (cfg.num_layers * 6, 2 * cfg.num_layers * 6, 6)
+    assert (gpu_logits - cpu_logits).abs().max().item() <= 1e-4 * cpu_logits.abs().max().item()
+    assert torch.equal(gpu_toks, cpu_toks)
+    _, _, launched = run(on_card, "auto")
+    assert launched == (0, 4 * cfg.num_layers * 6, 6)

@@ -37,7 +37,13 @@ def test_port_sources_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "gemma3.py", "matmul_w4.py", "matmul_w8.py", "flash_attention.py",
             "flash_decode.py", "perplexity.py", "matmul_w4a8.py", "matmul_w8a8.py",
-            "chip_smoke.py"} <= names
+            "matmul_q8.py", "mlp_w4.py", "chip_smoke.py"} <= names
+    # The calibration and pre-pass subpackages are scanned too.
+    scanned = {str(p.relative_to(REPO / "onnx_quantize_tpu_torch")) for p in PORT_FILES
+               if p.is_relative_to(REPO / "onnx_quantize_tpu_torch")}
+    assert {"calibration/__init__.py", "calibration/base.py", "calibration/calibrate.py",
+            "calibration/factory.py", "calibration/minmax.py",
+            "prepasses/__init__.py"} <= scanned
 
 
 def test_importing_the_port_builds_no_kernel():
@@ -49,4 +55,4 @@ def test_importing_the_port_builds_no_kernel():
     assert kernels._LIBRARY is None
     assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {
         "matmul_w4.cu", "matmul_w8.cu", "flash_attention.cu", "flash_decode.cu",
-        "matmul_w4a8.cu", "matmul_w8a8.cu"}
+        "matmul_w4a8.cu", "matmul_w8a8.cu", "matmul_q8.cu", "mlp_w4.cu"}

@@ -13,6 +13,7 @@ from onnx_quantize_tpu.core.enums import QuantizationStrategy as JStrategy
 from onnx_quantize_tpu.models.gemma3 import Gemma3 as JGemma3
 from onnx_quantize_tpu.models.gemma3 import Gemma3Config as JGemma3Config
 from onnx_quantize_tpu_torch import QActivationArgs, QConfig, QuantType, QWeightArgs, quantize
+from onnx_quantize_tpu_torch.core.qconfig import CalibrationParams
 from onnx_quantize_tpu_torch.algorithms import rtn_quantize
 from onnx_quantize_tpu_torch.core import numerics as tnum
 from onnx_quantize_tpu_torch.core.enums import QuantizationStrategy
@@ -119,10 +120,13 @@ def test_quantize_tree_bit_equal_with_group_fallback():
 
 
 @pytest.mark.parametrize("kwargs", [
-    # Static activations need calibration (dynamic ones are ported).
+    # Static activations calibrate with minmax; the other calibrators and the
+    # pre-passes are not ported.
     dict(weights=QWeightArgs(dtype="int8", group_size=-1),
-         input_activations=QActivationArgs(dtype="uint8")),
-    dict(weights=QWeightArgs(dtype="uint4", group_size=128), format="qlinear"),
+         input_activations=QActivationArgs(dtype="uint8"),
+         calibration_params=CalibrationParams(method="percentile")),
+    dict(weights=QWeightArgs(dtype="uint4", group_size=128),
+         calibration_params=dict(method="entropy")),
     dict(weights=QWeightArgs(dtype="uint4", group_size=128), preprocessors=[object()]),
 ])
 def test_off_slice_config_raises_not_implemented(kwargs):

@@ -159,10 +159,11 @@ def test_bridge_carries_activation_specs_and_static_qparams():
     assert moved.input_scale.device.type == moved.output_zero_point.device.type == "meta"
     assert out["s"]["w"].input_scale.item() == np.float32(0.02)
     assert out["s"]["w"].output_zero_point.item() == 3.0
-    qbias = JQBias(data=jnp.zeros(4, jnp.int32), scale=jnp.float32(1), zero_point=jnp.int32(0),
-                   quant_type="int32")
-    with pytest.raises(NotImplementedError, match="QBias"):
-        from_jax_params({"b": qbias}, device="cpu")
+    qbias = JQBias(data=jnp.arange(-2, 2, dtype=jnp.int32), scale=jnp.float32(0.25),
+                   zero_point=jnp.int32(0), quant_type="int32")
+    tbias = from_jax_params({"b": qbias}, device="cpu")["b"]
+    assert tbias.quant_type == "int32" and tbias.data.dtype == torch.int32
+    np.testing.assert_array_equal(tbias.dequantize().numpy(), np.asarray(qbias.dequantize()))
 
 
 def test_fusion_keeps_activation_specs():

@@ -156,12 +156,21 @@ def test_config_rules_match_jax(weights, inputs, outputs):
 
 
 def test_static_activations_wait_for_calibration():
-    """The reference accepts static activations (and calibrates them); the
-    port raises, naming the ROADMAP entry."""
+    """Static activations are accepted, as the reference accepts them, and
+    quantize calibrates them first: every site gets its input qparams."""
     static = toqt.QActivationArgs(dtype="uint8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toqt.QConfig(weights=toqt.QWeightArgs(dtype="int8", group_size=-1),
-                     input_activations=static)
+    qc = toqt.QConfig(weights=toqt.QWeightArgs(dtype="int8", group_size=-1),
+                      input_activations=static,
+                      calibration_params=dict(num_samples=4, batch_size=2))
+    assert qc.calibration_params.num_samples == 4
+    model = Gemma3(Gemma3Config.tiny(**TINY))
+    params, plan = toqt.quantize(model, model.init(torch.Generator().manual_seed(0)), qc)
+    assert len(plan) == 7 * TINY["num_layers"] + 1
+    for entry in plan:
+        assert entry.input_scale is not None and entry.output_scale is None
+        assert entry.qconfig.calibration_data is None
+    site = params["layers.0"]["attn"]["q_proj"]["w"]
+    assert site.meta.input_quant.mode == "static" and site.input_scale is not None
 
 
 TINY = dict(hidden_size=320, intermediate_size=512, num_layers=3, sliding_pattern=3,
