@@ -15,13 +15,18 @@ Phases (any failed check exits non-zero; each prints its seconds):
    step, M=32, and a 32x128 prefill, M=4096) and at odd shapes (ragged M and
    N, a pad group, signed and unsigned weights, uint8 shifted by 128, group
    tiles, a tile past 1024 rows), in bfloat16 and float32, and the lm_head
-   at a scoring window's M=2048. Yardsticks the port never calls, on the
-   same operands: ``torch._weight_int4pack_mm`` (W4 body sites),
+   at a scoring window's M=2048. W4 also at M = 1, 16, 33, 64, 65 and 2048
+   (every route of its launch plan, printed with each case: tensor-core mma
+   with and without the K split, the CUDA-core route), twice per case with
+   the same bits, timed at M=32 and 2048. Yardsticks the port never calls,
+   on the same operands: ``torch._weight_int4pack_mm`` (W4 body sites, and
+   at M=2048 also dequantize-then-``torch.matmul`` in bf16),
    ``torch._weight_int8pack_mm`` (W8 lm_head) and ``torch._int_mm`` (W8A8
    lm_head, and the int32 core of Q8). Q8 (QLINEAR) on one layer's seven
    site shapes at M=32 and 4096 and at odd shapes (ragged M, K=100 and
-   1000, int8 and uint8 weights, symmetric and not, per tensor and per
-   channel, with and without an int32 bias), bit-equal to its plain version.
+   1000, N = 40, 100 and 130, int8 and uint8 weights, symmetric and not, per
+   tensor and per channel, with and without an int32 bias), bit-equal to its
+   plain version.
    The fused W4 MLP at the 270M widths (M=32, 1, 256) and a ragged-K int4
    case, timed beside the unfused W4 gate_up, GeGLU, W4 down it replaces.
    Flash
@@ -66,7 +71,8 @@ Phases (any failed check exits non-zero; each prints its seconds):
 
 The run ends by counting the kernels the activation quantizer and one whole
 site launch, and by profiling decode steps of the W4, A8, Q8 and MLP arms
-(``torch.profiler``: launches, device busy time, idle share). The line
+and one scoring window of the W4 model (``torch.profiler``: launches, device
+busy time, idle share, the matmul kernels' share). The line
 before the last is a JSON object
 of per-kernel results, each with the least time the card could take for the
 same work (``bound_ms``); the last is ``{"ok": true, "device": {...}}``.
@@ -231,17 +237,26 @@ def int8pack_ms(x, qt) -> tuple[float, torch.Tensor]:
 BF16_LIBRARY = {"w4": ("_weight_int4pack_mm", int4pack_ms),
                 "w8": ("_weight_int8pack_mm", int8pack_ms)}
 
+# W4 rows of M: decode sizes around the plan's tile edges (the K split), a
+# scoring window (2048) and a 32x128 prefill (4096), both without a split.
+W4_ROWS = (1, 16, 32, 33, 64, 65, 2048, 4096)
 # name, kernel, K, N, dtype, group_size, symmetric, rows of M, timed
 KERNEL_CASES = [
-    ("qkv", "w4", 640, 1536, "uint4", 128, False, (32, 4096), True),
-    ("o", "w4", 1024, 640, "uint4", 128, False, (32, 4096), True),
-    ("gate_up", "w4", 640, 4096, "uint4", 128, False, (32, 4096), True),
-    ("down", "w4", 2048, 640, "uint4", 128, False, (32, 4096), True),
+    ("qkv", "w4", 640, 1536, "uint4", 128, False, W4_ROWS, True),
+    ("o", "w4", 1024, 640, "uint4", 128, False, W4_ROWS, True),
+    ("gate_up", "w4", 640, 4096, "uint4", 128, False, W4_ROWS, True),
+    ("down", "w4", 2048, 640, "uint4", 128, False, W4_ROWS, True),
     ("lm_head", "w8", 640, 262144, "int8", -1, True, (32,), True),
     # Odd shapes: 5 groups padded to 6 and a ragged N edge; ragged M tiles;
-    # int4; 4 columns per thread with a ragged edge; uint8 with zero points.
+    # int4; 4 columns per thread with a ragged edge; int4 g64 with a pad
+    # group and a ragged tile edge (W4's mma route); N % 16 != 0 and channel
+    # scales over K = 130 (gs 65), both on W4's CUDA-core route in bf16 too;
+    # uint8 with zero points.
     ("odd_w4_u4_k320_g64_n200", "w4", 320, 200, "uint4", 64, False, (5, 37), False),
     ("odd_w4_i4_sym_n20000", "w4", 640, 20000, "int4", 128, True, (3, 70), False),
+    ("odd_w4_i4_k448_g64_n1008", "w4", 448, 1008, "int4", 64, True, (3, 40), False),
+    ("odd_w4_u4_n130", "w4", 640, 130, "uint4", 128, False, (5, 33), False),
+    ("odd_w4_u4_channel_k130", "w4", 130, 128, "uint4", -1, False, (4,), False),
     ("odd_w8_i8_n40004", "w8", 640, 40004, "int8", -1, True, (5, 33), False),
     ("odd_w8_u8_asym_n1000", "w8", 640, 1000, "uint8", -1, False, (7, 65), False),
     ("odd_w8_u8_g128", "w8", 640, 999, "uint8", 128, False, (31,), False),
@@ -281,9 +296,34 @@ MATMUL_KIND = {"w4": "bf16", "w8": "bf16", "w4a8": "int8", "w8a8": "int8"}
 LIBRARY_BF16_REL_TOL = 2e-2
 
 
+def dequant_matmul_ms(x, qt) -> tuple[float, float, torch.Tensor]:
+    """"Dequantize once, then ``torch.matmul`` in bf16" for ``x @ dequant(qt)``
+    (a yardstick for large M: the port never calls it): milliseconds of the
+    matmul on the dequantized bf16 weight, milliseconds of the one-time
+    dequantize, and the output."""
+    from onnx_quantize_tpu_torch.ops.reference import dequantize_weight
+
+    xb = x.to(torch.bfloat16)
+    dq_ms = cuda_time_ms(lambda: dequantize_weight(qt).to(torch.bfloat16), 5)
+    wb = dequantize_weight(qt).to(torch.bfloat16)
+    return cuda_time_ms(lambda: torch.matmul(xb, wb), 50), dq_ms, torch.matmul(xb, wb)
+
+
+# W4 is timed at a decode step (M=32) and a scoring window (M=2048).
+W4_TIMED = (32, 2048)
+
+
 def run_kernel_checks(gen) -> dict:
+    """W4/W8/W4A8/W8A8 against their plain versions; the M=32 numbers go to
+    the kernels line; W4 also at M=2048 (``results["w4"]["m2048"]``), beside
+    its bound and two yardsticks. W4 must give the same bits twice."""
+    from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import w4_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
                    "library_ms": None} for k in MATMUL_KIND}
+    big = {"ms": 0.0, "plain_ms": 0.0, "int4pack_ms": 0.0, "bf16_matmul_ms": 0.0,
+           "dequant_ms": 0.0, "bytes": 0, "ops": 0}
     for name, kernel, K, N, dtype, gs, sym, rows, timed in KERNEL_CASES:
         qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"))
         for M in rows:
@@ -299,10 +339,17 @@ def run_kernel_checks(gen) -> dict:
                 check(err <= REL_TOL * scale,
                       f"{name} M={M} {xdt}: max abs err {err:.3e} > {REL_TOL} * {scale:.3e}")
                 line = f"kernel {kernel} {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e}"
+                if kernel == "w4":
+                    check(torch.equal(wrapper(*ops, **kw), y), f"{name} M={M} {xdt}: two W4 "
+                                                               "launches differ")
+                    plan = w4_plan(M, ops[0].shape[1], N, kw["gs"], xdt, sms)
+                    line += (f" plan={plan.route} {plan.bm}x{plan.bn} splits={plan.splits} "
+                             f"blocks={plan.blocks}")
                 res = results[kernel]
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-                if timed and xdt == torch.bfloat16:
-                    iters = 50 if M <= 32 else 5
+                if (timed and xdt == torch.bfloat16
+                        and (kernel != "w4" or M in W4_TIMED)):
+                    iters = 50 if M <= 32 else 20
                     ms = cuda_time_ms(lambda: wrapper(*ops, **kw), iters)
                     plain_ms = cuda_time_ms(lambda: plain(*ops, **kw), iters)
                     line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
@@ -326,18 +373,35 @@ def run_kernel_checks(gen) -> dict:
                         check(lib_err <= REL_TOL * scale,
                               f"{name}: _int_mm disagrees by {lib_err:.3e}")
                         line += f" int_mm_ms={res['library_ms']:.4f} int_mm_err={lib_err:.3e}"
-                    if kernel in BF16_LIBRARY and M == 32:
+                    if kernel in BF16_LIBRARY and M in W4_TIMED:
                         op, lib_fn = BF16_LIBRARY[kernel]
                         lib_ms, lib = lib_fn(x, qt)
                         lib_err = (lib.float() - y).abs().max().item()
                         check(lib_err <= LIBRARY_BF16_REL_TOL * scale,
-                              f"{name}: {op} disagrees by {lib_err:.3e}")
-                        res["library_ms"] = (res["library_ms"] or 0.0) + lib_ms
+                              f"{name} M={M}: {op} disagrees by {lib_err:.3e}")
                         line += f" {op}_ms={lib_ms:.4f} {op}_err={lib_err:.3e}"
+                        if M == 32:
+                            res["library_ms"] = (res["library_ms"] or 0.0) + lib_ms
+                    if kernel == "w4" and M == 2048:
+                        mm_ms, dq_ms, dq = dequant_matmul_ms(x, qt)
+                        dq_err = (dq.float() - y).abs().max().item()
+                        check(dq_err <= LIBRARY_BF16_REL_TOL * scale,
+                              f"{name} M={M}: dequantize-then-matmul disagrees by {dq_err:.3e}")
+                        line += (f" bf16_matmul_ms={mm_ms:.4f} (after a one-time dequantize of "
+                                 f"{dq_ms:.4f} ms) dequant_matmul_err={dq_err:.3e}")
+                        big["ms"] += ms
+                        big["plain_ms"] += plain_ms
+                        big["int4pack_ms"] += lib_ms
+                        big["bf16_matmul_ms"] += mm_ms
+                        big["dequant_ms"] += dq_ms
+                        big["bytes"] += nbytes(*ops, y)
+                        big["ops"] += 2 * M * K * N
                 print(line, flush=True)
     for kernel, res in results.items():
         res["bound_ms"], res["bound_by"] = bound(res.pop("bytes"), res.pop("ops"),
                                                  MATMUL_KIND[kernel])
+    big["bound_ms"], big["bound_by"] = bound(big.pop("bytes"), big.pop("ops"), "bf16")
+    results["w4"]["m2048"] = big
     return results
 
 
@@ -380,7 +444,8 @@ def q8_site(K: int, N: int, dtype: str, symmetric: bool, strategy: str, gen,
 # Gemma-3-270M layer's seven QLINEAR sites (unfused: static output scales
 # differ by site), then odd shapes: a ragged K chunk with zero points and a
 # per-tensor scale, K past the plain version's 256-row chunks, uint8
-# symmetric (zp 128, shifted), int8 asymmetric, and 4 columns per thread.
+# symmetric (zp 128, shifted), int8 asymmetric, 4 columns per thread, and N
+# off the TPU's multiples of 128.
 Q8_CASES = [
     ("q", 640, 1024, "int8", True, "channel", (32, 4096), False, True),
     ("k", 640, 256, "int8", True, "channel", (32, 4096), False, True),
@@ -394,6 +459,10 @@ Q8_CASES = [
     ("odd_q8_u8_sym_k1000", 1000, 384, "uint8", True, "channel", (5, 65), False, False),
     ("odd_q8_i8_asym_tensor", 640, 128, "int8", False, "tensor", (3,), True, False),
     ("odd_q8_u8_asym_n40064", 640, 40064, "uint8", False, "channel", (33,), False, False),
+    # N % 128 != 0 (the TPU's lane rule, not the kernel's): N % 4 != 0 too.
+    ("odd_q8_i8_n40", 640, 40, "int8", True, "channel", (32,), False, False),
+    ("odd_q8_u8_asym_n100_bias", 100, 100, "uint8", False, "channel", (7,), True, False),
+    ("odd_q8_i8_tensor_n130_bias", 640, 130, "int8", True, "tensor", (3, 33), True, False),
 ]
 
 
@@ -927,7 +996,8 @@ def count_launches(fn) -> tuple[int, list[str]]:
     return len(names), [n[:40] for n in names]
 
 
-MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w8|q8|mlp_w4)_kernel\b")
+MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w4_mma|w8|q8|mlp_w4)_kernel\b")
+W4_KERNEL_NAME = re.compile(r"\bw4(_mma)?_kernel\b")
 
 
 def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
@@ -962,6 +1032,36 @@ def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
     return {"launches": len(events) / steps, "busy_ms": busy / steps,
             "matmul_ms": matmul / steps, "other_ms": (busy - matmul) / steps,
             "wall_ms": wall_ms / steps, "idle_share": 1.0 - busy / wall_ms}
+
+
+def profile_window(model, params) -> dict:
+    """One 2048-token scoring window (``perplexity_from_tokens`` over 2048
+    seeded tokens) under ``torch.profiler``, after a warm-up window: device
+    operations, busy ms, wall ms (profiled), idle share, and the busy ms of
+    the W4 kernels, the W8 kernel and flash attention."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
+
+    tokens = np.random.default_rng(SEED).integers(0, model.cfg.vocab_size, 2048)
+    perplexity_from_tokens(model, params, tokens, 2048, 512)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        perplexity_from_tokens(model, params, tokens, 2048, 512)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def busy(pattern=None):
+        return sum(e.time_range.elapsed_us() for e in events
+                   if pattern is None or pattern.search(e.name)) / 1e3
+
+    total = busy()
+    return {"launches": len(events), "busy_ms": total, "wall_ms": wall_ms,
+            "idle_share": 1.0 - total / wall_ms, "w4_ms": busy(W4_KERNEL_NAME),
+            "w8_ms": busy(re.compile(r"\bw8_kernel\b")),
+            "flash_attention_ms": busy(re.compile(r"flash_attention"))}
 
 
 def timed(fn):
@@ -1137,6 +1237,14 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernel_results = run_kernel_checks(gen)
+    w4, big = kernel_results["w4"], kernel_results["w4"]["m2048"]
+    print(f"W4, a layer's four body sites (bf16 x, L2 cold) on {card}: M=32 kernel "
+          f"{w4['ms']:.4f} ms, bound {w4['bound_ms']:.5f} ({w4['bound_by']}), plain "
+          f"{w4['plain_ms']:.4f}, _weight_int4pack_mm {w4['library_ms']:.4f}; M=2048 kernel "
+          f"{big['ms']:.4f} ms, bound {big['bound_ms']:.5f} ({big['bound_by']}), plain "
+          f"{big['plain_ms']:.4f}, _weight_int4pack_mm {big['int4pack_ms']:.4f}, bf16 "
+          f"torch.matmul on weights dequantized once {big['bf16_matmul_ms']:.4f} (the "
+          f"dequantize {big['dequant_ms']:.4f})", flush=True)
     kernel_results.update(run_attention_checks(gen))
     kernel_results["q8"] = run_q8_checks(gen)
     kernel_results["mlp_w4"] = run_mlp_checks(gen)
@@ -1246,6 +1354,12 @@ def main() -> int:
               f"(quantized matmul kernels {prof['matmul_ms']:.3f}, other "
               f"{prof['other_ms']:.3f}), wall {prof['wall_ms']:.3f} ms, idle share "
               f"{prof['idle_share']:.3f}", flush=True)
+    prof = profile_window(model, qparams)
+    print(f"window profile, W4+int8 head (one 2048-token window, torch.profiler) on {card}: "
+          f"launches {prof['launches']}, device busy {prof['busy_ms']:.3f} ms (W4 kernels "
+          f"{prof['w4_ms']:.3f}, W8 {prof['w8_ms']:.3f}, flash attention "
+          f"{prof['flash_attention_ms']:.3f}), wall {prof['wall_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']:.3f}", flush=True)
     phase_done("8 launch counts")
 
     # name in the kernels line, CUDA source, replaced TPU kernel.

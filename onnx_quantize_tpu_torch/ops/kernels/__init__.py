@@ -29,7 +29,8 @@ from typing import Callable
 import torch
 
 __all__ = ["register_kernel", "select_kernel", "pad_to_multiple", "kernel_library",
-           "build_kernel_library", "check_launch", "ptr", "stream_ptr", "use_four_columns"]
+           "build_kernel_library", "check_launch", "ptr", "stream_ptr", "use_four_columns",
+           "four_columns_fill"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -126,7 +127,7 @@ def kernel_library() -> ctypes.CDLL:
         lib_path, _, _ = build_kernel_library()
         lib = ctypes.CDLL(str(lib_path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.oqt_w4_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+        lib.oqt_w4_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
         lib.oqt_w4_matmul.restype = i
         lib.oqt_w8_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.oqt_w8_matmul.restype = i
@@ -163,11 +164,15 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def use_four_columns(N: int, device: torch.device) -> bool:
+def four_columns_fill(N: int, sms: int) -> bool:
     """Give each thread 4 adjacent columns (one 32-bit load per weight row)
-    when N allows it and the wider blocks still fill every SM once."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    when N allows it and the wider blocks still fill each of ``sms`` SMs once."""
     return N % 4 == 0 and -(-N // 128) >= sms
+
+
+def use_four_columns(N: int, device: torch.device) -> bool:
+    """:func:`four_columns_fill` on ``device``'s SMs."""
+    return four_columns_fill(N, torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 # Import kernel modules so they register. Order matters: the A8 predicates

@@ -20,9 +20,9 @@ What bounds it on the card: a Gemma-3-270M layer's seven sites at decode
 beside the plain version's and ``torch._int_mm``'s on the int32 core (a
 yardstick the port never calls).
 
-The predicate is the reference's: QLINEAR with both activation scales
-calibrated and ``N % 128 == 0``; another QLINEAR site runs the oracle on the
-CPU and raises on the card.
+The predicate is the reference's without its TPU lane rule ``N % 128 == 0``:
+every QLINEAR site with both activation scales calibrated takes the kernel,
+which masks a ragged N (the reference runs other N through its jnp oracle).
 """
 
 from __future__ import annotations
@@ -202,8 +202,7 @@ def q8_qlinear_matmul(x: torch.Tensor, qt: QTensor, bias: QBias | None = None) -
 def _q8_predicate(x, qt: QTensor, bias) -> bool:
     if qt.meta.fmt != QFormat.QLINEAR:
         return False
-    return (qt.meta.shape[1] % 128 == 0 and qt.input_scale is not None
-            and qt.output_scale is not None)
+    return qt.input_scale is not None and qt.output_scale is not None
 
 
 @register_kernel(_q8_predicate)

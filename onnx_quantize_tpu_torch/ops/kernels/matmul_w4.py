@@ -5,19 +5,25 @@ Replaces the Pallas kernel ``onnx_quantize_tpu/ops/kernels/matmul_w4.py``
 ``x @ dequant(W)`` in float32 for packed 4-bit weights, applying each group's
 affine to the partial dot: ``(x . w - sum(x) * zp) * s``.
 
-What bounds it on the card: at Gemma-3-270M decode the body's packed weights
-are about 57 MB per step (K padded to whole group pairs), which at 3.35 TB/s
-would be ~17 us; the kernel reads each weight byte once per call (one block
-covers all M <= 64 rows), but its FMAs run on the CUDA cores, which at M = 32
-cost more than the bytes. ``PERF.md`` holds its times beside the plain
-version's.
+What bounds it on the card: at decode (M <= 64) the packed weight bytes (a
+Gemma-3-270M layer's four sites read 3.1 MB, ~1 us at 3.35 TB/s); at
+M >= 2048 the bf16 operations (~26 us a layer at M = 2048). bf16 x runs on
+the tensor cores (``mma.sync`` m16n8k16, nibbles turned exactly into bf16),
+and at decode the K dimension is split until the grid fills the SMs, with
+the partials summed in a fixed order inside the same launch. float32 x, a
+group size or N that is not a multiple of 16, or an operand that is not
+16-byte aligned keeps the CUDA-core kernel.
+:func:`w4_plan` chooses the route, the tile and the split; the source note in
+``csrc/matmul_w4.cu`` gives the design. ``PERF.md`` holds its times.
 
 Unlike the TPU wrapper there is no ``N % 128`` predicate (ragged edges are
 masked in the kernel) and no routing of large M to a dequantize-then-dense
-path: that threshold was measured on a TPU and waits to be measured here.
+path: that threshold was measured on a TPU.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -25,21 +31,100 @@ from onnx_quantize_tpu_torch.core.enums import QFormat, QuantizationStrategy
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
 from onnx_quantize_tpu_torch.ops.kernels import (
     check_launch,
+    four_columns_fill,
     kernel_library,
     pad_to_multiple,
     ptr,
     register_kernel,
     stream_ptr,
-    use_four_columns,
 )
 from onnx_quantize_tpu_torch.ops.reference import qdq_epilogue, qdq_prologue
 
-__all__ = ["w4_matmul", "w4_dequant_matmul_plain", "w4_dequant_matmul", "w4_operands",
-           "expand_w4_scales"]
+__all__ = ["W4Plan", "w4_plan", "w4_matmul", "w4_dequant_matmul_plain", "w4_dequant_matmul",
+           "w4_operands", "expand_w4_scales"]
 
 # Kernel launches since import (or since a caller reset it); counts only
 # launches of the CUDA kernel, never the plain version.
 launches = 0
+
+# Packed rows an mma slice covers (the mma's K): the K split's granularity.
+MMA_SLICE = 16
+# Bytes of one cp.async copy: the mma route stages x and weight rows in such
+# chunks, so it needs 16-byte-aligned operands and N % 16 == 0.
+CP_ASYNC_BYTES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class W4Plan:
+    """How one W4 call launches: ``route`` "mma" (bf16 x on the tensor cores)
+    or "simt" (float32 FMAs on the CUDA cores); a block covers ``bm`` rows of
+    M and ``bn`` columns; ``splits`` blocks share each (bm, bn) tile along K,
+    each walking ``split_chunks`` slices of 16 packed rows (mma route; 0 for
+    simt); ``blocks`` in all."""
+
+    route: str
+    bm: int
+    bn: int
+    splits: int
+    split_chunks: int
+    blocks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.blocks // self.splits
+
+
+def w4_plan(M: int, K_pad: int, N: int, gs: int, x_dtype: torch.dtype, sms: int) -> W4Plan:
+    """The launch plan of ``csrc/matmul_w4.cu`` for x (M, K_pad) of ``x_dtype``
+    against packed (K_pad/2, N) weights with group size ``gs`` on a card of
+    ``sms`` SMs.
+
+    bf16 x with ``gs % 16 == 0`` and ``N % 16 == 0`` (the weight rows move in
+    16-byte ``cp.async`` chunks) takes the mma route: 16-, 32- or 64-row by
+    64-column tiles up to M = 64, 64 x 128 above. While the tiles number
+    fewer than the SMs, K is split into ranges of whole 16-row slices (each
+    slice lies inside one group pair), as many as fill the SMs; with enough
+    tiles (every Gemma-3-270M site at M >= 2048) there is no split. Anything
+    else takes the simt route.
+    """
+    if x_dtype == torch.bfloat16 and gs % MMA_SLICE == 0 and N % CP_ASYNC_BYTES == 0:
+        bm = 16 if M <= 16 else 32 if M <= 32 else 64
+        bn = 64 if M <= 64 else 128
+        tiles = -(-M // bm) * -(-N // bn)
+        chunks = K_pad // (2 * MMA_SLICE)
+        per = chunks
+        if tiles < sms:
+            per = max(1, chunks // -(-sms // tiles))
+        splits = -(-chunks // per)
+        return W4Plan("mma", bm, bn, splits, per, tiles * splits)
+    return _simt_plan(M, N, sms)
+
+
+def _simt_plan(M: int, N: int, sms: int) -> W4Plan:
+    """32- or 64-row tiles; four columns a thread only when N % 4 == 0 and the
+    wide blocks still fill every SM."""
+    bm = 32 if M <= 32 else 64
+    bn = 128 if four_columns_fill(N, sms) else 32
+    return W4Plan("simt", bm, bn, 1, 0, -(-M // bm) * -(-N // bn))
+
+
+# Scratch of the K split, per (device, stream, tiles, splits, tile size): the
+# partial tiles (float32) and one counter a tile. Made once; the kernel leaves
+# every counter at 0 when it ends. Launches that share an entry run in the
+# order of their one stream (or of a graph replayed on it).
+_SCRATCH: dict = {}
+
+
+def _split_scratch(device: torch.device, plan: W4Plan) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device, torch.cuda.current_stream(device).cuda_stream, plan.tiles, plan.splits,
+           plan.bm * plan.bn)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = (torch.empty(plan.blocks * plan.bm * plan.bn, dtype=torch.float32,
+                               device=device),
+                   torch.zeros(plan.tiles, dtype=torch.int32, device=device))
+        _SCRATCH[key] = scratch
+    return scratch
 
 
 def w4_dequant_matmul_plain(x2d: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
@@ -103,10 +188,17 @@ def w4_matmul(x2d: torch.Tensor, data: torch.Tensor, scales: torch.Tensor, zps: 
     out = torch.empty((M, N), dtype=torch.float32, device=x2d.device)
     if M == 0 or N == 0:
         return out
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    plan = w4_plan(M, K_pad, N, gs, x2d.dtype, sms)
+    if plan.route == "mma" and any(t.data_ptr() % CP_ASYNC_BYTES for t in (x2d, data)):
+        plan = _simt_plan(M, N, sms)  # a view at an odd offset: no 16-byte copies
+    ws = counters = None
+    if plan.splits > 1:
+        ws, counters = _split_scratch(x2d.device, plan)
     err = kernel_library().oqt_w4_matmul(
         ptr(x2d), int(x2d.dtype == torch.bfloat16), ptr(data), ptr(scales), ptr(zps),
-        ptr(out), M, K_pad, N, gs, int(signed), int(use_four_columns(N, x2d.device)),
-        stream_ptr(x2d.device),
+        ptr(out), M, K_pad, N, gs, int(signed), int(plan.route == "mma"), plan.bm, plan.bn,
+        plan.split_chunks, ptr(ws), ptr(counters), stream_ptr(x2d.device),
     )
     check_launch(err, "oqt_w4_matmul")
     global launches

@@ -47,6 +47,13 @@ CASES = [
     ("uint8", -1, False, 96, 128, (7,)),  # zero points
     ("uint8", -1, True, 96, 128, (4,)),  # symmetric uint8 keeps zp = 128
     ("uint8", 32, False, 96, 999, (65,)),  # group scales, ragged M and N
+    # W4's launch plan: decode M with the K split (N = 640, a Gemma-3-270M
+    # o/down width), large M without it, int4 g64 with a pad group and a
+    # ragged tile edge, N % 16 != 0 (the CUDA-core route for bf16 x too).
+    *(pytest.param(("uint4", 128, False, K, N, (M,)), id=f"w4-route-{K}x{N}-M{M}")
+      for K, N, M in [(1024, 640, 1), (1024, 640, 16), (1024, 640, 33), (2048, 640, 64),
+                      (640, 1536, 65), (640, 1536, 2048), (640, 130, 5)]),
+    pytest.param(("int4", 64, True, 448, 1008, (32,)), id="w4-route-int4-g64-448x1008-M32"),
 ]
 
 
@@ -73,11 +80,14 @@ def _qtensor(dtype, group_size, symmetric, K, N, seed=0, a8=False):
 def test_kernel_matches_plain_reference(case):
     """Kernel output within 1e-4 of max|y| of the dequantize-then-matmul
     reference on the same (bf16-representable) inputs: they differ only in
-    float32 summation order."""
+    float32 summation order. W4 takes the route its plan names (mma for bf16
+    x when gs and N are multiples of 16, else simt), and a second launch gives
+    the same bits (the K split sums its partials in a fixed order)."""
     _require_cuda()
     dtype, gs, sym, K, N, xshape = case
     qt = _qtensor(dtype, gs, sym, K, N)
     module = matmul_w4 if qt.meta.packed else matmul_w8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for xdt in (torch.float32, torch.bfloat16):
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(xshape + (K,)).astype(
             np.float32)).to(xdt)
@@ -88,6 +98,12 @@ def test_kernel_matches_plain_reference(case):
         want = _qdq_matmul(x.float(), qt)
         assert got.shape == want.shape
         assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        if module is matmul_w4:
+            assert torch.equal(quantized_matmul(x.cuda(), qt.to("cuda")), got)
+            plan = matmul_w4.w4_plan(x[..., :1].numel(), 2 * qt.data.shape[0], N,
+                                     qt.meta.pack_group, xdt, sms)
+            mma = xdt == torch.bfloat16 and qt.meta.pack_group % 16 == 0 and N % 16 == 0
+            assert plan.route == ("mma" if mma else "simt")
 
 
 # (dtype, group_size, symmetric, K, N, x shape) of dynamic-int8 (A8) sites.
@@ -356,6 +372,10 @@ Q8_CASES = [
     ("int8", True, "channel", 2048, 640, (4, 33), True),  # down, ragged M, an int32 bias
     ("uint8", False, "tensor", 100, 128, (7,), True),  # a ragged K chunk, zero points
     ("uint8", True, "channel", 1000, 256, (65,), False),  # uint8 symmetric (zp 128)
+    # N % 128 != 0 takes the kernel too (N % 4 != 0: one column a thread).
+    ("int8", True, "channel", 640, 40, (32,), False),
+    ("uint8", False, "channel", 100, 100, (7,), True),
+    ("int8", True, "tensor", 640, 130, (3, 11), True),
 ]
 
 

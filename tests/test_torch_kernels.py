@@ -104,22 +104,17 @@ def test_dispatch_on_cpu_runs_plain_versions_without_launches(case):
 
 
 def test_uncovered_config_raises_off_cpu():
-    """A QLINEAR site with N % 128 != 0 has no kernel (the reference's Q8
-    predicate): the CPU runs the QLINEAR oracle, any other device raises."""
-    from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec
+    """A config no kernel covers (int32 weight codes: W8 takes 8-bit weights
+    only): the CPU runs the plain QDQ reference, any other device raises."""
     from onnx_quantize_tpu_torch.ops.kernels import select_kernel
-    from onnx_quantize_tpu_torch.ops.reference import _qlinear_matmul
 
-    static = ActQuantSpec(mode="static", dtype="uint8")
-    meta = QTensorMeta(quant_type="int8", strategy="channel", group_size=-1, symmetric=True,
-                       reduce_range=False, shape=(8, 4), format="qlinear", input_quant=static,
-                       output_quant=static)
-    scale, zp = torch.tensor(0.05), torch.tensor(128, dtype=torch.uint8)
-    qt = QTensor(torch.arange(32, dtype=torch.int8).reshape(8, 4), torch.full((4,), 0.01),
-                 torch.zeros(4, dtype=torch.int8), meta, scale, zp, scale, zp)
+    meta = QTensorMeta(quant_type="int32", strategy="channel", group_size=-1, symmetric=True,
+                       reduce_range=False, shape=(8, 4))
+    qt = QTensor(torch.arange(-16, 16, dtype=torch.int32).reshape(8, 4), torch.full((4,), 0.01),
+                 torch.zeros(4, dtype=torch.int32), meta)
     assert select_kernel(torch.ones((2, 8)), qt, None) is None
     x = torch.linspace(-1, 1, 16).reshape(2, 8)
-    assert torch.equal(quantized_matmul(x, qt), _qlinear_matmul(x, qt))
+    assert torch.equal(quantized_matmul(x, qt), _qdq_matmul(x, qt))
     meta_qt = qt.to("meta")
     with pytest.raises(NotImplementedError, match="No Hopper kernel"):
         quantized_matmul(torch.ones((2, 8), device="meta"), meta_qt)

@@ -82,11 +82,10 @@ def test_quantize_bias_bit_equal(n_scales):
     assert moved.data.device.type == moved.scale.device.type == "meta"
 
 
-def _q8_case(strategy, with_bias, K, w_qt, w_sym, seed=0):
+def _q8_case(strategy, with_bias, K, w_qt, w_sym, seed=0, N=128):
     """The JAX kernel test's site (tests/ops/test_kernels.py:71-106): a QTensor
     and bias in both packages, and the input."""
     rng = np.random.default_rng(seed)
-    N = 128
     w = (0.1 * rng.standard_normal((K, N))).astype(np.float32)
     q, s, zp = jax_rtn(w, w_qt, strategy, -1, w_sym, False)
     x = rng.standard_normal((6, K)).astype(np.float32)
@@ -148,6 +147,19 @@ def test_q8_bf16_input_and_k_past_chunks(w_qt):
     txb = torch.from_numpy(x).to(torch.bfloat16)
     np.testing.assert_array_equal(quantized_matmul(txb, tqt, tbias).numpy(), want)
     np.testing.assert_array_equal(_qlinear_matmul(txb, tqt, tbias).numpy(), want)
+
+
+@pytest.mark.parametrize("N", [40, 100, 130])
+def test_q8_takes_sites_of_any_n(N):
+    """The Q8 predicate has no TPU lane rule: a QLINEAR site of any N selects
+    the Q8 kernel (its plain version on the CPU), bit-equal to JAX's oracle,
+    which the reference runs for such N."""
+    x, jqt, jbias, tqt, tbias = _q8_case(JStrategy.CHANNEL, True, 100, JQuantType.QUInt8, False,
+                                         seed=5, N=N)
+    tx = torch.from_numpy(x)
+    assert select_kernel(tx, tqt, tbias).__module__ == matmul_q8.__name__
+    want = np.asarray(quantized_matmul_jnp(x, jqt, jbias))
+    np.testing.assert_array_equal(quantized_matmul(tx, tqt, tbias).numpy(), want)
 
 
 def test_q8_wrapper_rejects_bad_operands():
@@ -309,8 +321,8 @@ def _ids(seed):
 
 def test_q8_sites_bit_equal_on_jax_inputs(q8_models, monkeypatch):
     """Every site of the JAX tree's forward, fed JAX's own site input: the
-    port's dispatch (the Q8 plain version where N % 128 == 0, the oracle
-    otherwise, W8 on the head) gives the same float32 bits."""
+    port's dispatch (the Q8 plain version at every QLINEAR site, k and v at
+    N = 64 included; W8 on the head) gives the same float32 bits."""
     jmodel, jp, _, _ = q8_models
     seen = []
 
@@ -332,7 +344,7 @@ def test_q8_sites_bit_equal_on_jax_inputs(q8_models, monkeypatch):
             np.testing.assert_array_equal(got, want)
         else:  # the W8 head: float32 summation order only
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
-    assert q8_sites == 5 * TINY["num_layers"]  # k and v (N = 64) take the oracle
+    assert q8_sites == 7 * TINY["num_layers"]
 
 
 # Why this bound: a QLINEAR site requantizes its output to uint8 codes. The
