@@ -11,7 +11,8 @@ Phases (any failed check exits non-zero; each prints its seconds):
    and turns TF32 off for float32 matmuls and convolutions.
 2. Build: compiles the Hopper kernels from ``onnx_quantize_tpu_torch/csrc``.
 3. Kernels: each kernel against its plain PyTorch version on the card, timed
-   with CUDA events. W4/W8 and W4A8/W8A8 at the main path's shapes (a decode
+   with CUDA events (each call alone, L2 flushed, behind a device spin that
+   covers the host's dispatch). W4/W8 and W4A8/W8A8 at the main path's shapes (a decode
    step, M=32, and a 32x128 prefill, M=4096) and at odd shapes (ragged M and
    N, a pad group, signed and unsigned weights, uint8 shifted by 128, group
    tiles, a tile past 1024 rows), in bfloat16 and float32, and the lm_head
@@ -26,7 +27,9 @@ Phases (any failed check exits non-zero; each prints its seconds):
    site shapes at M=32 and 4096 and at odd shapes (ragged M, K=100 and
    1000, N = 40, 100 and 130, int8 and uint8 weights, symmetric and not, per
    tensor and per channel, with and without an int32 bias), bit-equal to its
-   plain version.
+   plain version and twice the same bits, each case's launch plan printed
+   (s8 tensor-core mma with and without the K split, the CUDA-core route),
+   the seven sites timed at M=32 and 4096 beside ``torch._int_mm``.
    The fused W4 MLP at the 270M widths (M=32, 1, 256) and a ragged-K int4
    case, timed beside the unfused W4 gate_up, GeGLU, W4 down it replaces.
    Flash
@@ -119,16 +122,24 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+# Device cycles (~0.25 ms) of a spin queued before each timed call, so that
+# the card is still busy when the host has queued the call's launches and the
+# events time the device work alone, not the host's dispatch.
+HOST_COVER_CYCLES = 500_000
+
+
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds per call of ``fn``, each call timed alone with CUDA
-    events after a 256 MB write that evicts the 50 MB L2: a decode step finds
-    its weights cold, since a step streams more weight bytes than L2 holds."""
+    events after a 256 MB write that evicts the 50 MB L2 (a decode step finds
+    its weights cold, since a step streams more weight bytes than L2 holds)
+    and a device spin that covers the host's dispatch."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -466,13 +477,20 @@ Q8_CASES = [
 ]
 
 
+# Q8 is timed at a decode step (M=32) and a 32x128 prefill (M=4096).
+Q8_TIMED = (32, 4096)
+
+
 def run_q8_checks(gen) -> dict:
-    """Q8 against its plain version (bit for bit), and one layer's seven
-    sites at M=32 timed beside ``torch._int_mm`` on their int32 core."""
+    """Q8 against its plain version (bit for bit, and the same bits twice),
+    and one layer's seven sites timed at M=32 (the kernels line) and M=4096
+    (``results["m4096"]``) beside ``torch._int_mm`` on their int32 core."""
     from onnx_quantize_tpu_torch.ops.kernels import matmul_q8
 
-    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    work = [0, 0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timed_res = {M: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+                 for M in Q8_TIMED}
+    err_max = 0.0
     for name, K, N, dtype, sym, strat, rows, with_bias, timed in Q8_CASES:
         qt, bias = q8_site(K, N, dtype, sym, strat, gen, with_bias)
         for M in rows:
@@ -485,28 +503,38 @@ def run_q8_checks(gen) -> dict:
                 err = (y - ref).abs().max().item()
                 check(bool(torch.isfinite(y).all()), f"q8 {name} M={M} {xdt}: non-finite output")
                 check(err == 0.0, f"q8 {name} M={M} {xdt}: max abs err {err:.3e}, not 0")
-                res["max_abs_err"] = max(res["max_abs_err"], err)
-                line = f"kernel q8 {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e}"
-                if timed and M == 32 and xdt == torch.bfloat16:
-                    ms = cuda_time_ms(lambda: matmul_q8.q8_matmul(*ops), 50)
-                    plain_ms = cuda_time_ms(lambda: matmul_q8.q8_matmul_plain(*ops), 50)
+                check(torch.equal(matmul_q8.q8_matmul(*ops), y),
+                      f"q8 {name} M={M} {xdt}: two launches differ")
+                err_max = max(err_max, err)
+                plan = matmul_q8.q8_plan(M, K, N, sms)
+                line = (f"kernel q8 {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e} "
+                        f"plan={plan.route} {plan.bm}x{plan.bn} splits={plan.splits} "
+                        f"blocks={plan.blocks}")
+                if timed and M in Q8_TIMED and xdt == torch.bfloat16:
+                    iters = 50 if M <= 32 else 20
+                    ms = cuda_time_ms(lambda: matmul_q8.q8_matmul(*ops), iters)
+                    plain_ms = cuda_time_ms(lambda: matmul_q8.q8_matmul_plain(*ops), iters)
                     # The int32 core on the same codes: x quantized as the
                     # kernel does, int8 weights as stored.
                     c = ops[3]
                     x_q = (torch.clamp(torch.round(x.float() / c.fparams[0]).to(torch.int32)
                                        + c.iparams[0], *c.iq) - c.x_shift).to(torch.int8)
-                    lib_ms = cuda_time_ms(lambda: torch._int_mm(x_q, qt.data), 50)
+                    lib_ms = cuda_time_ms(lambda: torch._int_mm(x_q, qt.data), iters)
                     exact = (x_q.double() @ qt.data.double()).to(torch.int32)
                     check(torch.equal(torch._int_mm(x_q, qt.data), exact),
-                          f"q8 {name}: _int_mm disagrees with the exact integer dot")
-                    res["ms"] += ms
-                    res["plain_ms"] += plain_ms
-                    res["library_ms"] += lib_ms
-                    work[0] += nbytes(x, qt.data, c.wsum, c.wzp, c.req, y)
-                    work[1] += 2 * M * K * N
+                          f"q8 {name} M={M}: _int_mm disagrees with the exact integer dot")
+                    acc = timed_res[M]
+                    acc["ms"] += ms
+                    acc["plain_ms"] += plain_ms
+                    acc["library_ms"] += lib_ms
+                    acc["bytes"] += nbytes(x, qt.data, c.wsum, c.wzp, c.req, y)
+                    acc["ops"] += 2 * M * K * N
                     line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f}"
                 print(line, flush=True)
-    res["bound_ms"], res["bound_by"] = bound(*work, "int8")
+    for acc in timed_res.values():
+        acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("ops"), "int8")
+    res = dict(timed_res[32], max_abs_err=err_max)
+    res["m4096"] = timed_res[4096]
     return res
 
 
@@ -996,7 +1024,8 @@ def count_launches(fn) -> tuple[int, list[str]]:
     return len(names), [n[:40] for n in names]
 
 
-MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w4_mma|w8|q8|mlp_w4)_kernel\b")
+MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w4_mma|w8|q8|q8_mma|mlp_w4)_kernel\b")
+Q8_KERNEL_NAME = re.compile(r"\bq8(_mma)?_kernel\b")
 W4_KERNEL_NAME = re.compile(r"\bw4(_mma)?_kernel\b")
 
 
@@ -1005,8 +1034,8 @@ def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
     ``steps`` greedy steps under ``torch.profiler``: device operations
     launched, device busy ms (their summed durations; one stream), wall ms
     (profiled, so longer than unprofiled), the idle share 1 - busy/wall, and
-    the busy ms of the quantized-matmul kernels (the fused MLP among them)
-    and of everything else."""
+    the busy ms of the quantized-matmul kernels (the fused MLP among them),
+    of the Q8 kernels alone, and of everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     from onnx_quantize_tpu_torch.engine import InferenceEngine
@@ -1028,9 +1057,11 @@ def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     matmul = sum(e.time_range.elapsed_us() for e in events
                  if MATMUL_KERNEL_NAME.search(e.name)) / 1e3
+    q8 = sum(e.time_range.elapsed_us() for e in events if Q8_KERNEL_NAME.search(e.name)) / 1e3
     wall_ms = 1e3 * wall
     return {"launches": len(events) / steps, "busy_ms": busy / steps,
-            "matmul_ms": matmul / steps, "other_ms": (busy - matmul) / steps,
+            "matmul_ms": matmul / steps, "q8_ms": q8 / steps,
+            "other_ms": (busy - matmul) / steps,
             "wall_ms": wall_ms / steps, "idle_share": 1.0 - busy / wall_ms}
 
 
@@ -1246,7 +1277,12 @@ def main() -> int:
           f"torch.matmul on weights dequantized once {big['bf16_matmul_ms']:.4f} (the "
           f"dequantize {big['dequant_ms']:.4f})", flush=True)
     kernel_results.update(run_attention_checks(gen))
-    kernel_results["q8"] = run_q8_checks(gen)
+    kernel_results["q8"] = q8 = run_q8_checks(gen)
+    print(f"Q8, a layer's seven sites (bf16 x, L2 cold) on {card}: "
+          + "; ".join(f"M={M} kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                      f"({r['bound_by']}), plain {r['plain_ms']:.4f}, _int_mm "
+                      f"{r['library_ms']:.4f}" for M, r in ((32, q8), (4096, q8["m4096"]))),
+          flush=True)
     kernel_results["mlp_w4"] = run_mlp_checks(gen)
     phase_done("3 kernels")
 
@@ -1351,7 +1387,8 @@ def main() -> int:
         prof = profile_decode(model, params, mega=mega)
         print(f"decode step profile, {arm} (B=32, int8 KV, torch.profiler, mean of 4 steps) on "
               f"{card}: launches {prof['launches']:.0f}, device busy {prof['busy_ms']:.3f} ms "
-              f"(quantized matmul kernels {prof['matmul_ms']:.3f}, other "
+              f"(quantized matmul kernels {prof['matmul_ms']:.3f}, Q8 among them "
+              f"{prof['q8_ms']:.3f}, other "
               f"{prof['other_ms']:.3f}), wall {prof['wall_ms']:.3f} ms, idle share "
               f"{prof['idle_share']:.3f}", flush=True)
     prof = profile_window(model, qparams)

@@ -1,11 +1,14 @@
-// Shared pieces of the hand-written dequant-matmul kernels.
+// Shared pieces of the hand-written matmul kernels.
 //
-// All four matmul kernels (W4, W8, W4A8, W8A8) use the same block shape: 32 threads along N (one warp reads
-// consecutive columns of a weight row, so its loads coalesce) times 8 warps
-// along M. Each thread owns CPT adjacent columns and RPT rows of M, strided
-// by 8 so that a warp's reads of the staged activations all hit the same
+// The CUDA-core kernels (W8, W4A8, W8A8, and the simt routes of W4 and Q8)
+// use one block shape: 32 threads along N (one warp reads consecutive
+// columns of a weight row, so its loads coalesce) times 8 warps along M.
+// Each thread owns CPT adjacent columns and RPT rows of M, strided by 8 so
+// that a warp's reads of the staged activations all hit the same
 // shared-memory word (a broadcast). Activations are staged through shared
-// memory in float32, RC rows of K at a time.
+// memory, RC rows of K at a time. The tensor-core routes of W4 and Q8 pick
+// their own tiles (their launch plans) and share the cp.async and ldmatrix
+// helpers at the end of this file.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -88,6 +91,33 @@ __device__ __forceinline__ void transpose4x4(const uint32_t rows[4], uint32_t co
   cols[1] = __byte_perm(a, b, 0x7632);
   cols[2] = __byte_perm(c, d, 0x5410);
   cols[3] = __byte_perm(c, d, 0x7632);
+}
+
+// ---- tensor-core routes: asynchronous copies and fragment loads ----------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 matrices of 16-bit elements (8 rows of 16 bytes each): lanes
+// 8i..8i+7 give the row addresses of matrix i, register i gets matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_u32(p)));
 }
 
 }  // namespace oqt

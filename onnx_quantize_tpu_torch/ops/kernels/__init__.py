@@ -30,7 +30,7 @@ import torch
 
 __all__ = ["register_kernel", "select_kernel", "pad_to_multiple", "kernel_library",
            "build_kernel_library", "check_launch", "ptr", "stream_ptr", "use_four_columns",
-           "four_columns_fill"]
+           "four_columns_fill", "split_scratch"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -141,7 +141,7 @@ def kernel_library() -> ctypes.CDLL:
                                             ctypes.POINTER(ctypes.c_longlong), p]
         lib.oqt_flash_attention.restype = i
         lib.oqt_q8_matmul.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                                      i, p]
+                                      i, i, i, i, p, p, p]
         lib.oqt_q8_matmul.restype = i
         lib.oqt_mlp_w4.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.oqt_mlp_w4.restype = i
@@ -173,6 +173,27 @@ def four_columns_fill(N: int, sms: int) -> bool:
 def use_four_columns(N: int, device: torch.device) -> bool:
     """:func:`four_columns_fill` on ``device``'s SMs."""
     return four_columns_fill(N, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+# Scratch of the K split of the tensor-core kernels (W4, Q8), per (device,
+# stream, tiles, splits, tile size): the partial tiles (4-byte elements,
+# float32 for W4, int32 for Q8) and one counter a tile. Made once; each
+# kernel leaves every counter at 0 when it ends. Launches that share an entry
+# run in the order of their one stream (or of a graph replayed on it).
+SPLIT_SCRATCH: dict = {}
+
+
+def split_scratch(device: torch.device, plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """(partials, counters) for a launch ``plan`` with ``tiles``, ``splits``,
+    ``bm``, ``bn`` and ``blocks`` that splits K."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream, plan.tiles, plan.splits,
+           plan.bm * plan.bn)
+    scratch = SPLIT_SCRATCH.get(key)
+    if scratch is None:
+        scratch = (torch.empty(plan.blocks * plan.bm * plan.bn, dtype=torch.int32, device=device),
+                   torch.zeros(plan.tiles, dtype=torch.int32, device=device))
+        SPLIT_SCRATCH[key] = scratch
+    return scratch
 
 
 # Import kernel modules so they register. Order matters: the A8 predicates

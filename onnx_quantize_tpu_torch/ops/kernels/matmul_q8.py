@@ -14,11 +14,18 @@ device tensors) are computed once and cached on the QTensor, as the engine
 bakes the W4 scales once; a changed QTensor (``dataclasses.replace``,
 ``.to``) is a new object and computes them anew.
 
-What bounds it on the card: a Gemma-3-270M layer's seven sites at decode
-(M = 32) read 5.57 MB of weights, ~1.7 us at 3.35 TB/s; the kernel's
-``__dp4a`` work on the CUDA cores costs more. ``PERF.md`` holds its times
-beside the plain version's and ``torch._int_mm``'s on the int32 core (a
-yardstick the port never calls).
+What bounds it on the card: bytes. A Gemma-3-270M layer's seven sites read
+5.57 MB of int8 weights at decode (M = 32, ~1.7 us at 3.35 TB/s) and write
+113 MB of float32 outputs at a 32x128 prefill (M = 4096, ~51 us with the
+bf16 x). The dot runs on the tensor cores (``mma.sync`` m16n8k32 s8), x is
+quantized while it is staged, and at decode K is split until the grid fills
+the SMs, the int32 partials summed inside the same launch. A weight N that
+is not a multiple of 16 (or a weight pointer off a 16-byte boundary) keeps
+the ``__dp4a`` kernel of the first port. :func:`q8_plan` chooses the route,
+the tile and the split; the source note in ``csrc/matmul_q8.cu`` gives the
+design and why the bits hold. ``PERF.md`` holds its times beside the plain
+version's and ``torch._int_mm``'s on the int32 core (a yardstick the port
+never calls).
 
 The predicate is the reference's without its TPU lane rule ``N % 128 == 0``:
 every QLINEAR site with both activation scales calibrated takes the kernel,
@@ -35,15 +42,16 @@ from onnx_quantize_tpu_torch.core.enums import QFormat
 from onnx_quantize_tpu_torch.nn.qtensor import QBias, QTensor
 from onnx_quantize_tpu_torch.ops.kernels import (
     check_launch,
+    four_columns_fill,
     kernel_library,
     ptr,
     register_kernel,
+    split_scratch,
     stream_ptr,
-    use_four_columns,
 )
 
-__all__ = ["Q8Constants", "q8_matmul", "q8_matmul_plain", "q8_constants", "q8_operands",
-           "q8_qlinear_matmul"]
+__all__ = ["Q8Constants", "Q8Plan", "q8_plan", "q8_matmul", "q8_matmul_plain", "q8_constants",
+           "q8_operands", "q8_qlinear_matmul"]
 
 # Kernel launches since import (or since a caller reset it); counts only
 # launches of the CUDA kernel, never the plain version.
@@ -53,6 +61,76 @@ launches = 0
 # are at most 128 in magnitude, so every partial sum stays below
 # 128 * 128 * 256 = 2^22 < 2^24 and each chunk's dot is exact.
 _EXACT_ROWS = 256
+
+# K rows an s8 mma slice covers (m16n8k32): the K split's granularity.
+MMA_K = 32
+# Bytes of one cp.async copy: the mma route stages weight rows in such chunks,
+# so it needs N % 16 == 0 and a 16-byte-aligned weight pointer.
+CP_ASYNC_BYTES = 16
+# The int32 dot is exact while 128 * 128 * K < 2^31 (shifted codes).
+MAX_K = 1 << 17
+
+
+@dataclasses.dataclass(frozen=True)
+class Q8Plan:
+    """How one Q8 call launches: ``route`` "mma" (s8 tensor cores) or "simt"
+    (``__dp4a`` on the CUDA cores); a block covers ``bm`` rows of M and ``bn``
+    columns; ``splits`` blocks share each (bm, bn) tile along K, each walking
+    ``split_slices`` slices of 32 rows (mma route; 0 for simt); ``blocks``
+    in all."""
+
+    route: str
+    bm: int
+    bn: int
+    splits: int
+    split_slices: int
+    blocks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.blocks // self.splits
+
+
+def _tiles(M: int, N: int, bm: int, bn: int) -> int:
+    return -(-M // bm) * -(-N // bn)
+
+
+def q8_plan(M: int, K: int, N: int, sms: int) -> Q8Plan:
+    """The launch plan of ``csrc/matmul_q8.cu`` for x (M, K) against (K, N)
+    int8/uint8 weights on a card of ``sms`` SMs.
+
+    N % 16 == 0 (weight rows move in 16-byte ``cp.async`` chunks) takes the
+    mma route. Up to M = 64: 32-row tiles of 64 columns, or of 32 where 64
+    could not give every SM a block even split to single slices (the
+    Gemma-3-270M k and v sites). Above: 128 x 128 tiles, or 64 x 128 where
+    128-row tiles number fewer than the SMs. While fewer than half the SMs
+    have a tile, K is split into ranges of whole 32-row slices, as many as
+    fill the SMs (every 270M site at M = 32 launches 160 blocks; none splits
+    at M = 4096). Anything else takes the simt route.
+    """
+    if N % CP_ASYNC_BYTES:
+        return _simt_plan(M, N, sms)
+    slices = -(-K // MMA_K)
+    if M <= 64:
+        bm = 32
+        bn = 64 if _tiles(M, N, bm, 64) * slices >= sms else 32
+    else:
+        bn = 128
+        bm = 128 if _tiles(M, N, 128, bn) >= sms else 64
+    tiles = _tiles(M, N, bm, bn)
+    per = slices
+    if 2 * tiles <= sms:
+        per = max(1, slices // -(-sms // tiles))
+    splits = -(-slices // per)
+    return Q8Plan("mma", bm, bn, splits, per, tiles * splits)
+
+
+def _simt_plan(M: int, N: int, sms: int) -> Q8Plan:
+    """32- or 64-row tiles; four columns a thread only when N % 4 == 0 and the
+    wide blocks still fill every SM."""
+    bm = 32 if M <= 32 else 64
+    bn = 128 if four_columns_fill(N, sms) else 32
+    return Q8Plan("simt", bm, bn, 1, 0, _tiles(M, N, bm, bn))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,11 +250,20 @@ def q8_matmul(x2d: torch.Tensor, data: torch.Tensor, bias: torch.Tensor | None,
         return out
     if data.data_ptr() % 4:
         raise ValueError("q8_matmul: data must be 4-byte aligned")
+    if K >= MAX_K:
+        raise ValueError(f"q8_matmul: K = {K} could overflow the int32 dot (K < {MAX_K})")
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    plan = q8_plan(M, K, N, sms)
+    if plan.route == "mma" and data.data_ptr() % CP_ASYNC_BYTES:
+        plan = _simt_plan(M, N, sms)  # a view at an odd offset: no 16-byte copies
+    ws = counters = None
+    if plan.splits > 1:
+        ws, counters = split_scratch(x2d.device, plan)
     err = kernel_library().oqt_q8_matmul(
         ptr(x2d), int(x2d.dtype == torch.bfloat16), ptr(data), ptr(c.wsum), ptr(c.wzp),
         ptr(c.req), ptr(bias), ptr(c.fparams), ptr(c.iparams), ptr(out), M, K, N,
-        int(data.dtype == torch.int8), c.x_shift, *c.iq, *c.oq,
-        int(use_four_columns(N, x2d.device)), stream_ptr(x2d.device),
+        int(data.dtype == torch.int8), c.x_shift, *c.iq, *c.oq, int(plan.route == "mma"),
+        plan.bm, plan.bn, plan.split_slices, ptr(ws), ptr(counters), stream_ptr(x2d.device),
     )
     check_launch(err, "oqt_q8_matmul")
     global launches

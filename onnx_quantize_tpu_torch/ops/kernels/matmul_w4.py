@@ -36,6 +36,7 @@ from onnx_quantize_tpu_torch.ops.kernels import (
     pad_to_multiple,
     ptr,
     register_kernel,
+    split_scratch,
     stream_ptr,
 )
 from onnx_quantize_tpu_torch.ops.reference import qdq_epilogue, qdq_prologue
@@ -108,25 +109,6 @@ def _simt_plan(M: int, N: int, sms: int) -> W4Plan:
     return W4Plan("simt", bm, bn, 1, 0, -(-M // bm) * -(-N // bn))
 
 
-# Scratch of the K split, per (device, stream, tiles, splits, tile size): the
-# partial tiles (float32) and one counter a tile. Made once; the kernel leaves
-# every counter at 0 when it ends. Launches that share an entry run in the
-# order of their one stream (or of a graph replayed on it).
-_SCRATCH: dict = {}
-
-
-def _split_scratch(device: torch.device, plan: W4Plan) -> tuple[torch.Tensor, torch.Tensor]:
-    key = (device, torch.cuda.current_stream(device).cuda_stream, plan.tiles, plan.splits,
-           plan.bm * plan.bn)
-    scratch = _SCRATCH.get(key)
-    if scratch is None:
-        scratch = (torch.empty(plan.blocks * plan.bm * plan.bn, dtype=torch.float32,
-                               device=device),
-                   torch.zeros(plan.tiles, dtype=torch.int32, device=device))
-        _SCRATCH[key] = scratch
-    return scratch
-
-
 def w4_dequant_matmul_plain(x2d: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
                             zps: torch.Tensor, *, gs: int, signed: bool) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on the kernel's operands.
@@ -194,7 +176,7 @@ def w4_matmul(x2d: torch.Tensor, data: torch.Tensor, scales: torch.Tensor, zps: 
         plan = _simt_plan(M, N, sms)  # a view at an odd offset: no 16-byte copies
     ws = counters = None
     if plan.splits > 1:
-        ws, counters = _split_scratch(x2d.device, plan)
+        ws, counters = split_scratch(x2d.device, plan)
     err = kernel_library().oqt_w4_matmul(
         ptr(x2d), int(x2d.dtype == torch.bfloat16), ptr(data), ptr(scales), ptr(zps),
         ptr(out), M, K_pad, N, gs, int(signed), int(plan.route == "mma"), plan.bm, plan.bn,

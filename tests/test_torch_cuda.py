@@ -22,6 +22,7 @@ from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gem
 from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QBias, make_qtensor
 from onnx_quantize_tpu_torch.ops import convert_to_w4a8, quantized_matmul
 from onnx_quantize_tpu_torch.ops.kernels import (
+    SPLIT_SCRATCH,
     flash_attention,
     flash_decode,
     matmul_q8,
@@ -376,6 +377,13 @@ Q8_CASES = [
     ("int8", True, "channel", 640, 40, (32,), False),
     ("uint8", False, "channel", 100, 100, (7,), True),
     ("int8", True, "tensor", 640, 130, (3, 11), True),
+    # Q8's launch plan: the 270M k site at decode (32-column tiles, K split to
+    # single slices), q at a 32x128 prefill (128 x 128 tiles, no split), and a
+    # ragged tile edge at N = 208 with zero points and a bias.
+    pytest.param(("int8", True, "channel", 640, 256, (32,), False), id="q8-route-k-640x256-M32"),
+    pytest.param(("int8", True, "channel", 640, 1024, (32, 128), False),
+                 id="q8-route-q-640x1024-M4096"),
+    pytest.param(("uint8", False, "channel", 640, 208, (5,), True), id="q8-route-640x208-M5"),
 ]
 
 
@@ -408,18 +416,26 @@ def _q8_site(dtype, symmetric, strategy, K, N, with_bias, seed=0):
 def test_q8_kernel_bit_equal_to_plain_and_oracle(case):
     """Integer dots, then one rounded operation at a time in the oracle's
     order: the kernel equals its plain version on the card and the CPU
-    oracle bit for bit, for float32 and bfloat16 x."""
+    oracle bit for bit, for float32 and bfloat16 x, on the route its plan
+    names (mma when N % 16 == 0, else simt). A second launch gives the same
+    bits, and the K split's counters are back at 0 after each launch."""
     _require_cuda()
     dtype, sym, strategy, K, N, xshape, with_bias = case
     qt, bias = _q8_site(dtype, sym, strategy, K, N, with_bias)
     card_qt, card_bias = qt.to("cuda"), None if bias is None else bias.to("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = matmul_q8.q8_plan(int(np.prod(xshape)), K, N, sms)
+    assert plan.route == ("mma" if N % 16 == 0 else "simt")
     for xdt in (torch.float32, torch.bfloat16):
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(xshape + (K,)).astype(
             np.float32)).to(xdt)
         before = matmul_q8.launches
         got = quantized_matmul(x.cuda(), card_qt, card_bias)
+        again = quantized_matmul(x.cuda(), card_qt, card_bias)
         torch.cuda.synchronize()
-        assert matmul_q8.launches == before + 1
+        assert matmul_q8.launches == before + 2
+        assert torch.equal(got, again)
+        assert all(not counters.any() for _, counters in SPLIT_SCRATCH.values())
         plain = matmul_q8.q8_matmul_plain(*matmul_q8.q8_operands(x.cuda(), card_qt, card_bias))
         assert torch.equal(got, plain.reshape(got.shape))
         assert torch.equal(got.cpu(), _qlinear_matmul(x, qt, bias))
