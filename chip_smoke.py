@@ -19,10 +19,11 @@ Phases (any failed check exits non-zero; each prints its seconds):
    at a scoring window's M=2048. W4 also at M = 1, 16, 33, 64, 65 and 2048
    (every route of its launch plan, printed with each case: tensor-core mma
    with and without the K split, the CUDA-core route), twice per case with
-   the same bits, timed at M=32 and 2048. Yardsticks the port never calls,
-   on the same operands: ``torch._weight_int4pack_mm`` (W4 body sites, and
-   at M=2048 also dequantize-then-``torch.matmul`` in bf16),
-   ``torch._weight_int8pack_mm`` (W8 lm_head) and ``torch._int_mm`` (W8A8
+   the same bits, timed at M=32 and 2048; W8 on the lm_head also at a
+   scoring window's M=2048. Yardsticks the port never calls, on the same
+   operands: ``torch._weight_int4pack_mm`` (W4 body sites),
+   ``torch._weight_int8pack_mm`` (W8 lm_head), at M=2048 for both also
+   dequantize-then-``torch.matmul`` in bf16, and ``torch._int_mm`` (W8A8
    lm_head, and the int32 core of Q8). Q8 (QLINEAR) on one layer's seven
    site shapes at M=32 and 4096 and at odd shapes (ragged M, K=100 and
    1000, N = 40, 100 and 130, int8 and uint8 weights, symmetric and not, per
@@ -36,7 +37,12 @@ Phases (any failed check exits non-zero; each prints its seconds):
    decode at B=32, S=4096, 4 query heads on 1 KV head of 256, ragged
    positions (0, tile edges, the pos = S sentinel), window 512 and none, odd
    shapes, timed at B=32, S=1024, pos=640. Flash attention at T=S=2048 and
-   512 in bfloat16, window 512 and none, and an odd float32 shape.
+   512 in bfloat16, ragged bf16 shapes (D = 32, 64, 128; GQA 2 and 4; two KV
+   heads), window 512 and none, and an odd float32 shape: the wrapper's route
+   (bf16 on the tensor cores, float32 on the CUDA cores) against the plain
+   version, each case's launch plan printed; at T=2048 the kernel, the plain
+   version and SDPA timed per layer and per window. ptxas' registers and
+   spills of every kernel are printed after the build.
 4. Main path: Gemma-3-270M at full width in bfloat16 from a seeded init, W4
    g128 body plus int8 per-channel lm_head, fused q/k/v and gate/up, an int8
    KV cache at B=32 and max_seq=512: prefill 32 prompts of 128 tokens, 64
@@ -205,7 +211,7 @@ def int_mm_ms(x_q, data) -> tuple[float, torch.Tensor]:
     return cuda_time_ms(lambda: torch._int_mm(x_q, data), 50), torch._int_mm(x_q, data)
 
 
-def int4pack_ms(x, qt) -> tuple[float, torch.Tensor]:
+def int4pack_ms(x, qt, iters: int = 50) -> tuple[float, torch.Tensor]:
     """Milliseconds and bf16 output of ``torch._weight_int4pack_mm`` (a
     yardstick: the port never calls it) for ``x @ dequant(qt)``, a packed
     uint4 weight with baked scales. Its dequant is ``(q - 8) * s + zero``,
@@ -224,10 +230,10 @@ def int4pack_ms(x, qt) -> tuple[float, torch.Tensor]:
     def call():
         return torch._weight_int4pack_mm(xb, packed, gs, s_and_z)
 
-    return cuda_time_ms(call, 50), call()
+    return cuda_time_ms(call, iters), call()
 
 
-def int8pack_ms(x, qt) -> tuple[float, torch.Tensor]:
+def int8pack_ms(x, qt, iters: int = 50) -> tuple[float, torch.Tensor]:
     """Milliseconds and bf16 output of ``torch._weight_int8pack_mm`` (a
     yardstick: the port never calls it) for ``x @ dequant(qt)``, a symmetric
     int8 per-channel weight; the scales are held in bf16."""
@@ -241,7 +247,7 @@ def int8pack_ms(x, qt) -> tuple[float, torch.Tensor]:
     def call():
         return torch._weight_int8pack_mm(xb, w, scales)
 
-    return cuda_time_ms(call, 50), call()
+    return cuda_time_ms(call, iters), call()
 
 
 # The bf16 yardsticks of the weight-only kernels, timed at M=32.
@@ -257,7 +263,7 @@ KERNEL_CASES = [
     ("o", "w4", 1024, 640, "uint4", 128, False, W4_ROWS, True),
     ("gate_up", "w4", 640, 4096, "uint4", 128, False, W4_ROWS, True),
     ("down", "w4", 2048, 640, "uint4", 128, False, W4_ROWS, True),
-    ("lm_head", "w8", 640, 262144, "int8", -1, True, (32,), True),
+    ("lm_head", "w8", 640, 262144, "int8", -1, True, (32, 2048), True),
     # Odd shapes: 5 groups padded to 6 and a ragged N edge; ragged M tiles;
     # int4; 4 columns per thread with a ragged edge; int4 g64 with a pad
     # group and a ragged tile edge (W4's mma route); N % 16 != 0 and channel
@@ -320,21 +326,24 @@ def dequant_matmul_ms(x, qt) -> tuple[float, float, torch.Tensor]:
     return cuda_time_ms(lambda: torch.matmul(xb, wb), 50), dq_ms, torch.matmul(xb, wb)
 
 
-# W4 is timed at a decode step (M=32) and a scoring window (M=2048).
+# W4 and W8 are timed at a decode step (M=32) and a scoring window (M=2048).
 W4_TIMED = (32, 2048)
+# Calls of _weight_int8pack_mm timed at M=2048 (it took 11.9 ms at M=32).
+INT8PACK_ITERS_M2048 = 3
 
 
 def run_kernel_checks(gen) -> dict:
     """W4/W8/W4A8/W8A8 against their plain versions; the M=32 numbers go to
-    the kernels line; W4 also at M=2048 (``results["w4"]["m2048"]``), beside
-    its bound and two yardsticks. W4 must give the same bits twice."""
+    the kernels line; W4 (a layer's four sites) and W8 (the lm_head) also at
+    M=2048 (``results[kernel]["m2048"]``), beside their bounds and two
+    yardsticks. W4 must give the same bits twice."""
     from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import w4_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
                    "library_ms": None} for k in MATMUL_KIND}
-    big = {"ms": 0.0, "plain_ms": 0.0, "int4pack_ms": 0.0, "bf16_matmul_ms": 0.0,
-           "dequant_ms": 0.0, "bytes": 0, "ops": 0}
+    big = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_matmul_ms": 0.0,
+               "dequant_ms": 0.0, "bytes": 0, "ops": 0} for k in BF16_LIBRARY}
     for name, kernel, K, N, dtype, gs, sym, rows, timed in KERNEL_CASES:
         qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"))
         for M in rows:
@@ -386,33 +395,36 @@ def run_kernel_checks(gen) -> dict:
                         line += f" int_mm_ms={res['library_ms']:.4f} int_mm_err={lib_err:.3e}"
                     if kernel in BF16_LIBRARY and M in W4_TIMED:
                         op, lib_fn = BF16_LIBRARY[kernel]
-                        lib_ms, lib = lib_fn(x, qt)
+                        lib_ms, lib = lib_fn(x, qt, INT8PACK_ITERS_M2048
+                                             if kernel == "w8" and M == 2048 else 50)
                         lib_err = (lib.float() - y).abs().max().item()
                         check(lib_err <= LIBRARY_BF16_REL_TOL * scale,
                               f"{name} M={M}: {op} disagrees by {lib_err:.3e}")
                         line += f" {op}_ms={lib_ms:.4f} {op}_err={lib_err:.3e}"
                         if M == 32:
                             res["library_ms"] = (res["library_ms"] or 0.0) + lib_ms
-                    if kernel == "w4" and M == 2048:
+                    if kernel in BF16_LIBRARY and M == 2048:
                         mm_ms, dq_ms, dq = dequant_matmul_ms(x, qt)
                         dq_err = (dq.float() - y).abs().max().item()
                         check(dq_err <= LIBRARY_BF16_REL_TOL * scale,
                               f"{name} M={M}: dequantize-then-matmul disagrees by {dq_err:.3e}")
                         line += (f" bf16_matmul_ms={mm_ms:.4f} (after a one-time dequantize of "
                                  f"{dq_ms:.4f} ms) dequant_matmul_err={dq_err:.3e}")
-                        big["ms"] += ms
-                        big["plain_ms"] += plain_ms
-                        big["int4pack_ms"] += lib_ms
-                        big["bf16_matmul_ms"] += mm_ms
-                        big["dequant_ms"] += dq_ms
-                        big["bytes"] += nbytes(*ops, y)
-                        big["ops"] += 2 * M * K * N
+                        acc = big[kernel]
+                        acc["ms"] += ms
+                        acc["plain_ms"] += plain_ms
+                        acc["library_ms"] += lib_ms
+                        acc["bf16_matmul_ms"] += mm_ms
+                        acc["dequant_ms"] += dq_ms
+                        acc["bytes"] += nbytes(*ops, y)
+                        acc["ops"] += 2 * M * K * N
                 print(line, flush=True)
     for kernel, res in results.items():
         res["bound_ms"], res["bound_by"] = bound(res.pop("bytes"), res.pop("ops"),
                                                  MATMUL_KIND[kernel])
-    big["bound_ms"], big["bound_by"] = bound(big.pop("bytes"), big.pop("ops"), "bf16")
-    results["w4"]["m2048"] = big
+    for kernel, acc in big.items():
+        acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("ops"), "bf16")
+        results[kernel]["m2048"] = acc
     return results
 
 
@@ -670,9 +682,8 @@ def sdpa_ms(q, k, v, window) -> float:
 
 
 def run_attention_checks(gen) -> dict:
-    from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode
+    from onnx_quantize_tpu_torch.ops.kernels import flash_decode as fd
 
-    fd, fa = flash_decode, flash_attention
     results = {}
     # Flash decode: ragged positions at the main shape, then odd shapes.
     B, S = 32, 4096
@@ -718,49 +729,81 @@ def run_attention_checks(gen) -> dict:
     results["flash_decode"]["bound_ms"], results["flash_decode"]["bound_by"] = bound(
         *work, "float32")
 
-    # Flash attention: the window shapes in bf16, then an odd float32 shape.
-    fa_cases = [("fa_T2048_g4_D256", (1, 2048, 4, 1, 256, torch.bfloat16)),
-                ("fa_T512_g4_D256", (1, 512, 4, 1, 256, torch.bfloat16)),
-                ("fa_odd_B2_T48_mha_D128_f32", (2, 48, 2, 2, 128, torch.float32))]
+    results["flash_attention"] = run_flash_attention_checks(gen)
+    return results
+
+
+# Flash attention: (name, (B, T, Hq, Hkv, D, dtype)). A 2048-token window of
+# the 270M model (timed) and a 512-token prefill, ragged bf16 shapes (GQA 2
+# and 4, two KV heads, D = 32, 64, 128), and an odd float32 shape.
+FA_CASES = [("fa_T2048_g4_D256", (1, 2048, 4, 1, 256, torch.bfloat16)),
+            ("fa_T512_g4_D256", (1, 512, 4, 1, 256, torch.bfloat16)),
+            ("fa_odd_B2_T100_kv2_g2_D64", (2, 100, 4, 2, 64, torch.bfloat16)),
+            ("fa_odd_T70_g2_D32", (1, 70, 2, 1, 32, torch.bfloat16)),
+            ("fa_odd_T130_g4_D128", (1, 130, 4, 1, 128, torch.bfloat16)),
+            ("fa_odd_B2_T48_mha_D128_f32", (2, 48, 2, 2, 128, torch.float32))]
+FA_WINDOW = "fa_T2048_g4_D256"
+
+
+def describe(plan) -> str:
+    return (f"plan={plan.route} grid={plan.grid} rows={plan.rows} heads={plan.heads} "
+            f"key_splits={plan.key_splits} threads={plan.threads} "
+            f"smem={plan.smem_bytes}")
+
+
+def run_flash_attention_checks(gen) -> dict:
+    """Flash attention against the plain version at every case, on the
+    wrapper's route (bf16 on the tensor cores, float32 on the CUDA cores). At
+    the window shapes, one 2048-token window's 3 global and 15 local layers
+    timed: the kernel, the plain version and SDPA."""
+    from onnx_quantize_tpu_torch.ops.kernels import flash_attention as fa
+
     err_max = 0.0
-    times = {}
-    full = "fa_T2048_g4_D256"
-    work, library = [0, 0], 0.0  # one window's bytes and bf16 operations, SDPA's time
-    for name, shape in fa_cases:
+    arms = ("kernel", "plain", "sdpa")
+    per_layer = {}  # (arm, window) -> ms
+    work = [0, 0]  # one window's bytes and bf16 operations
+    for name, shape in FA_CASES:
+        B, T, Hq, Hkv, D, dtype = shape
         args = fa_inputs(*shape, gen)
         for window in (512, None):
+            plan = fa.fa_plan(B, T, T, Hq, Hkv, D, window, dtype)
+            check(plan.route == ("mma" if dtype == torch.bfloat16 else "simt"),
+                  f"{name}: plan route {plan.route} for {dtype}")
+            routes = dict(fa.route_launches)
             got = fa.flash_attention(*args, sliding_window=window)
             want = fa.flash_attention_reference(*args, sliding_window=window)
             torch.cuda.synchronize()
-            err = check_attention(f"{name} window={window}", got, want, shape[-1])
+            check(fa.route_launches[plan.route] == routes[plan.route] + 1,
+                  f"{name} window={window}: the wrapper did not take the {plan.route} route")
+            err = check_attention(f"{name} window={window} {plan.route}", got, want, dtype)
+            line = (f"kernel flash_attention {name} window={window}: {describe(plan)} "
+                    f"max_abs_err={err:.3e}")
             err_max = max(err_max, err)
-            line = f"kernel flash_attention {name} window={window}: max_abs_err={err:.3e}"
-            if shape[-1] == torch.bfloat16:
-                times[name, window] = (
-                    cuda_time_ms(lambda: fa.flash_attention(*args, sliding_window=window), 5),
-                    cuda_time_ms(lambda: fa.flash_attention_reference(
-                        *args, sliding_window=window), 5))
-                line += (f" kernel_ms={times[name, window][0]:.4f} "
-                         f"plain_ms={times[name, window][1]:.4f}")
-            if name == full:
+            if name == FA_WINDOW:
+                calls = {
+                    "kernel": (lambda: fa.flash_attention(*args, sliding_window=window), 20),
+                    "plain": (lambda: fa.flash_attention_reference(*args,
+                                                                   sliding_window=window), 5),
+                }
+                for arm, (fn, iters) in calls.items():
+                    per_layer[arm, window] = cuda_time_ms(fn, iters)
+                per_layer["sdpa", window] = sdpa_ms(*args, window)
+                line += " " + " ".join(f"{arm}_ms={per_layer[arm, window]:.4f}" for arm in arms)
                 layers = LOCAL_LAYERS if window else GLOBAL_LAYERS
                 q = args[0]
                 work[0] += layers * nbytes(*args, got)
                 work[1] += layers * 4 * q.shape[0] * q.shape[2] * q.shape[3] * causal_pairs(
                     q.shape[1], window)
-                sdpa = sdpa_ms(*args, window)
-                library += layers * sdpa
-                line += f" sdpa_ms={sdpa:.4f}"
             print(line, flush=True)
-    results["flash_attention"] = {
-        "max_abs_err": err_max,
-        # Per 2048-token scoring window of the 270M model: 3 global, 15 local layers.
-        "ms": GLOBAL_LAYERS * times[full, None][0] + LOCAL_LAYERS * times[full, 512][0],
-        "plain_ms": GLOBAL_LAYERS * times[full, None][1] + LOCAL_LAYERS * times[full, 512][1],
-        "library_ms": library}
-    results["flash_attention"]["bound_ms"], results["flash_attention"]["bound_by"] = bound(
-        *work, "bf16")
-    return results
+    # Per 2048-token scoring window of the 270M model: 3 global, 15 local layers.
+    window_ms = {arm: GLOBAL_LAYERS * per_layer[arm, None] + LOCAL_LAYERS * per_layer[arm, 512]
+                 for arm in arms}
+    res = {"max_abs_err": err_max, "ms": window_ms["kernel"], "plain_ms": window_ms["plain"],
+           "library_ms": window_ms["sdpa"],
+           "per_layer": {f"{arm} {'local' if w else 'global'}": ms
+                         for (arm, w), ms in per_layer.items()}}
+    res["bound_ms"], res["bound_by"] = bound(*work, "bf16")
+    return res
 
 
 # -- phase 4: the main path ------------------------------------------------------
@@ -1008,6 +1051,7 @@ def kernel_counts() -> dict:
 def reset_counts() -> None:
     for module in kernel_modules().values():
         module.launches = 0
+    kernel_modules()["flash_attention"].route_launches.update(mma=0, simt=0)
 
 
 def count_launches(fn) -> tuple[int, list[str]]:
@@ -1135,6 +1179,10 @@ def run_window_scoring(model, qparams, a8params, fparams, card) -> tuple[dict, d
         want.update({body: 4 * cfg.num_layers * windows, head: windows,
                      "flash_attention": cfg.num_layers * windows})
         check(launches == want, f"{label} window scoring launched {launches}, expected {want}")
+        routes = dict(kernel_modules()["flash_attention"].route_launches)
+        check(routes == {"mma": cfg.num_layers * windows, "simt": 0},
+              f"{label} window scoring ran flash attention on the routes {routes}, expected "
+              "every launch on the tensor cores")
         check(math.isfinite(ppl), f"{label} window scoring ppl {ppl} is not finite")
         with plain_kernels():
             ppl_plain, secs_plain = score(params)
@@ -1261,22 +1309,31 @@ def main() -> int:
     print(f"build: {lib_path.name} nvcc {build_s:.1f} s, ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if (line.startswith("==") or "registers" in line or "spill" in line
+                or "Compiling entry function" in line):
             print(f"  ptxas: {line.strip()}")
     phase_done("2 build")
 
     # Phase 3: kernels against their plain versions.
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernel_results = run_kernel_checks(gen)
-    w4, big = kernel_results["w4"], kernel_results["w4"]["m2048"]
-    print(f"W4, a layer's four body sites (bf16 x, L2 cold) on {card}: M=32 kernel "
-          f"{w4['ms']:.4f} ms, bound {w4['bound_ms']:.5f} ({w4['bound_by']}), plain "
-          f"{w4['plain_ms']:.4f}, _weight_int4pack_mm {w4['library_ms']:.4f}; M=2048 kernel "
-          f"{big['ms']:.4f} ms, bound {big['bound_ms']:.5f} ({big['bound_by']}), plain "
-          f"{big['plain_ms']:.4f}, _weight_int4pack_mm {big['int4pack_ms']:.4f}, bf16 "
-          f"torch.matmul on weights dequantized once {big['bf16_matmul_ms']:.4f} (the "
-          f"dequantize {big['dequant_ms']:.4f})", flush=True)
+    for kernel, what in (("w4", "W4, a layer's four body sites"), ("w8", "W8, the lm_head")):
+        res = kernel_results[kernel]
+        big = res["m2048"]
+        op = BF16_LIBRARY[kernel][0]
+        print(f"{what} (bf16 x, L2 cold) on {card}: M=32 kernel "
+              f"{res['ms']:.4f} ms, bound {res['bound_ms']:.5f} ({res['bound_by']}), plain "
+              f"{res['plain_ms']:.4f}, {op} {res['library_ms']:.4f}; M=2048 kernel "
+              f"{big['ms']:.4f} ms, bound {big['bound_ms']:.5f} ({big['bound_by']}), plain "
+              f"{big['plain_ms']:.4f}, {op} {big['library_ms']:.4f}, bf16 torch.matmul on "
+              f"weights dequantized once {big['bf16_matmul_ms']:.4f} (the dequantize "
+              f"{big['dequant_ms']:.4f})", flush=True)
     kernel_results.update(run_attention_checks(gen))
+    fa = kernel_results["flash_attention"]
+    print(f"flash attention, one 2048-token window's 18 layers (bf16, 3 global + 15 local, L2 "
+          f"cold) on {card}: kernel {fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f}, SDPA {fa['library_ms']:.4f}, bound {fa['bound_ms']:.5f} "
+          f"({fa['bound_by']}); per layer "
+          + ", ".join(f"{k} {v:.4f}" for k, v in fa["per_layer"].items()), flush=True)
     kernel_results["q8"] = q8 = run_q8_checks(gen)
     print(f"Q8, a layer's seven sites (bf16 x, L2 cold) on {card}: "
           + "; ".join(f"M={M} kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} "

@@ -6,9 +6,9 @@
 // Each thread owns CPT adjacent columns and RPT rows of M, strided by 8 so
 // that a warp's reads of the staged activations all hit the same
 // shared-memory word (a broadcast). Activations are staged through shared
-// memory, RC rows of K at a time. The tensor-core routes of W4 and Q8 pick
-// their own tiles (their launch plans) and share the cp.async and ldmatrix
-// helpers at the end of this file.
+// memory, RC rows of K at a time. The tensor-core routes of W4, Q8 and flash
+// attention pick their own tiles (their launch plans) and share the cp.async,
+// ldmatrix and mma helpers at the end of this file.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,6 +118,24 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(smem_u32(p)));
+}
+
+// The same four matrices, each transposed: register i of lane (g, t) holds
+// elements (2t, g) and (2t + 1, g) of matrix i (a B fragment from k-major rows).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace oqt

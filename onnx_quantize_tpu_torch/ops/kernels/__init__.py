@@ -138,7 +138,7 @@ def kernel_library() -> ctypes.CDLL:
         lib.oqt_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.oqt_flash_decode.restype = i
         lib.oqt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                            ctypes.POINTER(ctypes.c_longlong), p]
+                                            ctypes.POINTER(ctypes.c_longlong), i, i, i, i, p]
         lib.oqt_flash_attention.restype = i
         lib.oqt_q8_matmul.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                                       i, i, i, i, p, p, p]

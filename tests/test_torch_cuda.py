@@ -289,41 +289,92 @@ def test_flash_decode_kernel_matches_plain(case):
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
-# (B, T, Hq, Hkv, D, window, dtype): ragged T tiles, GQA, a window smaller
-# than a tile, every head_dim the kernel is built for.
+# (B, T, Hq, Hkv, D, window, dtype[, misaligned]): ragged T tiles, GQA, a
+# window smaller than a tile, every head_dim the kernel is built for, a
+# 2048-token window of Gemma-3-270M (local and global layers), and a bf16 q
+# one element off a 16-byte boundary (the wrapper copies it for cp.async).
 FA_CASES = [
     (2, 48, 2, 2, 128, None, torch.float32),
     (1, 130, 4, 1, 256, 40, torch.float32),
     (2, 100, 4, 2, 64, 7, torch.bfloat16),
     (1, 256, 4, 1, 256, None, torch.bfloat16),
     (1, 70, 2, 1, 32, 64, torch.bfloat16),
+    (1, 2048, 4, 1, 256, 512, torch.bfloat16),
+    (1, 2048, 4, 1, 256, None, torch.bfloat16),
+    (1, 130, 4, 1, 128, 40, torch.bfloat16, "misaligned"),
 ]
 
 
-@pytest.mark.parametrize(
-    "case", FA_CASES,
-    ids=lambda c: f"B{c[0]}-T{c[1]}-{c[2]}on{c[3]}-D{c[4]}-w{c[5]}-{str(c[6])[6:]}")
-def test_flash_attention_kernel_matches_plain(case):
-    """float32: within 1e-4 of max|out| (summation order). bfloat16: within
-    1e-2 of max|out| (p is rounded to bf16 against the running max in the
-    kernel and the row max in the plain version, and the output rounds to
-    bf16). v is read through the strides of a fused-projection slice."""
-    _require_cuda()
-    B, T, Hq, Hkv, D, window, dtype = case
+def _fa_case_id(c):
+    return (f"B{c[0]}-T{c[1]}-{c[2]}on{c[3]}-D{c[4]}-w{c[5]}-{str(c[6])[6:]}"
+            + "".join(f"-{x}" for x in c[7:]))
+
+
+def _fa_inputs(B, T, Hq, Hkv, D, dtype, misaligned=False):
+    """q, k and v from a seed; v is read through the strides of a
+    fused-projection slice, and q optionally one element past an aligned base."""
     rng = np.random.default_rng(1)
     q = torch.from_numpy(rng.standard_normal((B, T, Hq, D)) / np.sqrt(D)).to("cuda", dtype)
+    if misaligned:
+        buf = torch.empty(q.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:].copy_(q.reshape(-1))
+        q = buf[1:].view(B, T, Hq, D)
+        assert q.data_ptr() % 16 != 0
     kv = torch.from_numpy(rng.standard_normal((B, T, 2 * Hkv * D))).to("cuda", dtype)
     k = kv[..., :Hkv * D].reshape(B, T, Hkv, D).contiguous()
     v = kv[..., Hkv * D:].reshape(B, T, Hkv, D)  # strided view
-    before = flash_attention.launches
-    got = flash_attention.flash_attention(q, k, v, sliding_window=window)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    want = flash_attention.flash_attention_reference(q, k, v, sliding_window=window)
+    return q, k, v
+
+
+def _assert_fa_close(got, want, dtype):
     assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=_fa_case_id)
+def test_flash_attention_kernel_matches_plain(case):
+    """float32: within 1e-4 of max|out| (summation order), on the CUDA cores.
+    bfloat16: within 1e-2 of max|out| (p is rounded to bf16 against the
+    running max in the kernel and the row max in the plain version, and the
+    output rounds to bf16), on the tensor cores."""
+    _require_cuda()
+    B, T, Hq, Hkv, D, window, dtype, *misaligned = case
+    q, k, v = _fa_inputs(B, T, Hq, Hkv, D, dtype, bool(misaligned))
+    before, routes = flash_attention.launches, dict(flash_attention.route_launches)
+    got = flash_attention.flash_attention(q, k, v, sliding_window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    route = "mma" if dtype == torch.bfloat16 else "simt"
+    assert flash_attention.route_launches[route] == routes[route] + 1
+    want = flash_attention.flash_attention_reference(q, k, v, sliding_window=window)
+    _assert_fa_close(got, want, dtype)
+
+
+# (B, T, Hq, Hkv, D, window, heads, key splits): the mma route's merge with
+# one, two and four splits of a row slice, ragged T, GQA 4 and 8.
+FA_SPLIT_CASES = [
+    (1, 300, 4, 1, 256, None, 4, 1),
+    (1, 300, 4, 1, 256, 100, 4, 2),
+    (2, 200, 8, 2, 128, None, 2, 4),
+    (1, 90, 8, 1, 64, 20, 1, 8),
+]
+
+
+@pytest.mark.parametrize("case", FA_SPLIT_CASES,
+                         ids=lambda c: f"T{c[1]}-{c[2]}on{c[3]}-D{c[4]}-w{c[5]}-h{c[6]}x{c[7]}")
+def test_flash_attention_mma_key_splits_match_plain(case):
+    """Every key split merges to within 1e-2 of max|out| of the plain version."""
+    _require_cuda()
+    B, T, Hq, Hkv, D, window, heads, splits = case
+    q, k, v = _fa_inputs(B, T, Hq, Hkv, D, torch.bfloat16)
+    plan = flash_attention.mma_plan(B, T, Hq, D, heads, splits)
+    got = flash_attention.launch(q, k, v, window, plan)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_reference(q, k, v, sliding_window=window)
+    _assert_fa_close(got, want, torch.bfloat16)
 
 
 TINY128 = dict(hidden_size=64, num_heads=2, num_kv_heads=1, head_dim=128, sliding_window=16,
