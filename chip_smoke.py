@@ -24,7 +24,10 @@ Phases (any failed check exits non-zero; each prints its seconds):
    operands: ``torch._weight_int4pack_mm`` (W4 body sites),
    ``torch._weight_int8pack_mm`` (W8 lm_head), at M=2048 for both also
    dequantize-then-``torch.matmul`` in bf16, and ``torch._int_mm`` (W8A8
-   lm_head, and the int32 core of Q8). Q8 (QLINEAR) on one layer's seven
+   lm_head at M=32 and 2048, and the int32 core of Q8). W8A8 is bit-equal
+   to its plain version, twice, on the route its launch plan names (s8
+   tensor-core mma, the CUDA-core route for N % 16 != 0 or 16-row groups),
+   each case's plan printed. Q8 (QLINEAR) on one layer's seven
    site shapes at M=32 and 4096 and at odd shapes (ragged M, K=100 and
    1000, N = 40, 100 and 130, int8 and uint8 weights, symmetric and not, per
    tensor and per channel, with and without an int32 bias), bit-equal to its
@@ -36,7 +39,9 @@ Phases (any failed check exits non-zero; each prints its seconds):
    Flash
    decode at B=32, S=4096, 4 query heads on 1 KV head of 256, ragged
    positions (0, tile edges, the pos = S sentinel), window 512 and none, odd
-   shapes, timed at B=32, S=1024, pos=640. Flash attention at T=S=2048 and
+   shapes, each with its launch plan's split of the live range (a cluster of
+   up to 8 blocks) printed, twice with the same bits; timed at B=32, S=1024,
+   pos=640. Flash attention at T=S=2048 and
    512 in bfloat16, ragged bf16 shapes (D = 32, 64, 128; GQA 2 and 4; two KV
    heads), window 512 and none, and an odd float32 shape: the wrapper's route
    (bf16 on the tensor cores, float32 on the CUDA cores) against the plain
@@ -51,7 +56,8 @@ Phases (any failed check exits non-zero; each prints its seconds):
    against the same engine with the kernels swapped for their plain versions.
    Then the A8 arm: ``convert_to_w4a8`` of the same tree (W4A8 on every body
    site, W8A8 on the lm_head), through the same sequence and checks, which
-   for it require logits and greedy tokens equal to the plain run's. Then
+   for it require logits and greedy tokens equal to the plain run's, and
+   every W8A8 launch of its lm_head on the tensor-core route. Then
    the Q8 arm: the body calibrated on the card (8x128 seeded token ids) and
    quantized QLINEAR (int8 per-channel weights, static uint8 activations),
    the int8 weight-only lm_head, fusion (which leaves every QLINEAR site
@@ -70,7 +76,8 @@ Phases (any failed check exits non-zero; each prints its seconds):
    runs flash attention in every layer. Checks the launch counts per window,
    a finite result, and the mean NLL against the same run with every kernel
    swapped for its plain version, for the W4 and the A8 model; for the A8
-   model also an equal ppl with only its two matmul kernels swapped; prints
+   model also an equal ppl with only its two matmul kernels swapped and its
+   lm_head on W8A8's tensor-core route; prints
    the bf16 model's ppl beside them.
 7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 640 tokens through
    an engine with an int8 cache and ``fused_attention=True`` (flash decode in
@@ -205,10 +212,10 @@ def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def int_mm_ms(x_q, data) -> tuple[float, torch.Tensor]:
+def int_mm_ms(x_q, data, iters: int = 50) -> tuple[float, torch.Tensor]:
     """Milliseconds of ``torch._int_mm`` on the W8A8 kernel's int8 operands (a
     yardstick: the port never calls it), and its int32 product."""
-    return cuda_time_ms(lambda: torch._int_mm(x_q, data), 50), torch._int_mm(x_q, data)
+    return cuda_time_ms(lambda: torch._int_mm(x_q, data), iters), torch._int_mm(x_q, data)
 
 
 def int4pack_ms(x, qt, iters: int = 50) -> tuple[float, torch.Tensor]:
@@ -281,7 +288,9 @@ KERNEL_CASES = [
     # on the lm_head, also at a scoring window's M=2048; then odd shapes: a
     # pad group with a ragged N, int4 with ragged M, uint8 symmetric (shifted
     # by 128), group tiles, 4 columns per thread at M > 32 with a ragged
-    # edge, and a tile of 1100 rows (past the plain version's exact chunks).
+    # edge, a tile of 1100 rows (past the plain version's exact chunks; W8A8's
+    # mma route pads x to 1104), and uint8 g128 tiles with ragged M and N
+    # edges on W8A8's mma route.
     ("qkv", "w4a8", 640, 1536, "uint4", 128, False, (32, 4096), True),
     ("o", "w4a8", 1024, 640, "uint4", 128, False, (32, 4096), True),
     ("gate_up", "w4a8", 640, 4096, "uint4", 128, False, (32, 4096), True),
@@ -293,6 +302,7 @@ KERNEL_CASES = [
     ("odd_w8a8_i8_g128_n999", "w8a8", 640, 999, "int8", 128, True, (31,), False),
     ("odd_w8a8_i8_n40004", "w8a8", 640, 40004, "int8", -1, True, (5, 33), False),
     ("odd_w8a8_i8_k1100", "w8a8", 1100, 256, "int8", -1, True, (9, 40), False),
+    ("odd_w8a8_u8_sym_g128_n1008", "w8a8", 640, 1008, "uint8", 128, True, (37, 70), False),
 ]
 
 # Why these tolerances: kernel and plain version read the same inputs and form
@@ -302,7 +312,8 @@ KERNEL_CASES = [
 # The A8 kernels' integer partials are exact on both sides (int32 in the
 # kernel, float32 below 2^24 in the plain version), and their float32
 # epilogue runs the plain version's rounded operations in its order, so they
-# agree bit for bit; the same 1e-4 is their bar.
+# agree bit for bit; the same 1e-4 is their bar, and W8A8 (either route of its
+# plan) must also give its plain version's bits exactly, twice.
 REL_TOL = 1e-4
 # The operands' type for the operation peak: bf16 x for W4/W8, int8 for A8.
 MATMUL_KIND = {"w4": "bf16", "w8": "bf16", "w4a8": "int8", "w8a8": "int8"}
@@ -334,9 +345,11 @@ INT8PACK_ITERS_M2048 = 3
 
 def run_kernel_checks(gen) -> dict:
     """W4/W8/W4A8/W8A8 against their plain versions; the M=32 numbers go to
-    the kernels line; W4 (a layer's four sites) and W8 (the lm_head) also at
-    M=2048 (``results[kernel]["m2048"]``), beside their bounds and two
-    yardsticks. W4 must give the same bits twice."""
+    the kernels line; W4 (a layer's four sites), W8 and W8A8 (the lm_head)
+    also at M=2048 (``results[kernel]["m2048"]``), beside their bounds and
+    yardsticks. W4 must give the same bits twice, W8A8 its plain version's
+    bits twice on the route its plan names."""
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w8a8
     from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import w4_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -344,6 +357,7 @@ def run_kernel_checks(gen) -> dict:
                    "library_ms": None} for k in MATMUL_KIND}
     big = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_matmul_ms": 0.0,
                "dequant_ms": 0.0, "bytes": 0, "ops": 0} for k in BF16_LIBRARY}
+    big_a8 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
     for name, kernel, K, N, dtype, gs, sym, rows, timed in KERNEL_CASES:
         qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"))
         for M in rows:
@@ -359,6 +373,16 @@ def run_kernel_checks(gen) -> dict:
                 check(err <= REL_TOL * scale,
                       f"{name} M={M} {xdt}: max abs err {err:.3e} > {REL_TOL} * {scale:.3e}")
                 line = f"kernel {kernel} {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e}"
+                if kernel == "w8a8":
+                    plan = matmul_w8a8.w8a8_plan(M, ops[0].shape[1], N, sms, kw["bk"])
+                    routes = dict(matmul_w8a8.route_launches)
+                    check(torch.equal(y, ref) and torch.equal(wrapper(*ops, **kw), y),
+                          f"{name} M={M} {xdt}: W8A8 is not bit-equal to its plain version "
+                          "twice")
+                    check(matmul_w8a8.route_launches[plan.route] == routes[plan.route] + 1,
+                          f"{name} M={M}: W8A8 did not take its plan's {plan.route} route")
+                    line += (f" plan={plan.route} {plan.bm}x{plan.bn} blocks={plan.blocks} "
+                             "bits=equal")
                 if kernel == "w4":
                     check(torch.equal(wrapper(*ops, **kw), y), f"{name} M={M} {xdt}: two W4 "
                                                                "launches differ")
@@ -386,13 +410,22 @@ def run_kernel_checks(gen) -> dict:
 
                         q_ms = cuda_time_ms(lambda: quantize_activation_int8(x), iters)
                         line += f" quantizer_ms={q_ms:.4f}"
-                    if kernel == "w8a8" and M == 32:
-                        res["library_ms"], ref32 = int_mm_ms(ops[0], ops[2])
+                    if kernel == "w8a8":
+                        lib_ms, ref32 = int_mm_ms(ops[0], ops[2], iters)
                         lib = ref32.float() * (ops[1] * ops[3])  # scaled as the kernel does
                         lib_err = (lib - y).abs().max().item()
+                        del ref32, lib
                         check(lib_err <= REL_TOL * scale,
-                              f"{name}: _int_mm disagrees by {lib_err:.3e}")
-                        line += f" int_mm_ms={res['library_ms']:.4f} int_mm_err={lib_err:.3e}"
+                              f"{name} M={M}: _int_mm disagrees by {lib_err:.3e}")
+                        line += f" int_mm_ms={lib_ms:.4f} int_mm_err={lib_err:.3e}"
+                        if M == 32:
+                            res["library_ms"] = lib_ms
+                        else:  # a scoring window's lm_head
+                            big_a8["ms"] += ms
+                            big_a8["plain_ms"] += plain_ms
+                            big_a8["library_ms"] += lib_ms
+                            big_a8["bytes"] += nbytes(*ops, y)
+                            big_a8["ops"] += 2 * M * K * N
                     if kernel in BF16_LIBRARY and M in W4_TIMED:
                         op, lib_fn = BF16_LIBRARY[kernel]
                         lib_ms, lib = lib_fn(x, qt, INT8PACK_ITERS_M2048
@@ -425,6 +458,9 @@ def run_kernel_checks(gen) -> dict:
     for kernel, acc in big.items():
         acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("ops"), "bf16")
         results[kernel]["m2048"] = acc
+    big_a8["bound_ms"], big_a8["bound_by"] = bound(big_a8.pop("bytes"), big_a8.pop("ops"),
+                                                   "int8")
+    results["w8a8"]["m2048"] = big_a8
     return results
 
 
@@ -684,8 +720,12 @@ def sdpa_ms(q, k, v, window) -> float:
 def run_attention_checks(gen) -> dict:
     from onnx_quantize_tpu_torch.ops.kernels import flash_decode as fd
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
-    # Flash decode: ragged positions at the main shape, then odd shapes.
+    # Flash decode: ragged positions at the main shape (pos 0 has one live key,
+    # fewer than one split's share, so the other splits of its range are
+    # empty), then odd shapes. Each case's launch plan (its cluster of splits)
+    # is printed; a second launch must give the same bits.
     B, S = 32, 4096
     ragged = [0, 127, 128, 511, 512, 4095, S]
     ragged += torch.randint(0, S, (B - len(ragged),), generator=gen, device="cuda").tolist()
@@ -696,13 +736,21 @@ def run_attention_checks(gen) -> dict:
     err_max = 0.0
     for name, shape in fd_cases:
         args = fd_inputs(*shape, gen)
+        b, s_len, _, hkv = shape[:4]
         for window in (512, 16, None):
+            plan = fd.fd_plan(b, hkv, s_len, window, sms)
             got = fd.flash_decode_int8(*args, window=window)
+            again = fd.flash_decode_int8(*args, window=window)
             want = fd.flash_decode_int8_reference(*args, window=window)
             torch.cuda.synchronize()
             err = check_attention(f"{name} window={window}", got, want, torch.float32)
+            check(torch.equal(got, again), f"{name} window={window}: two flash-decode launches "
+                                           "differ")
             err_max = max(err_max, err)
-            print(f"kernel flash_decode {name} window={window}: max_abs_err={err:.3e}", flush=True)
+            print(f"kernel flash_decode {name} window={window}: max_abs_err={err:.3e} "
+                  f"splits={plan.splits} blocks={plan.blocks}", flush=True)
+    check(fd.fd_plan(B, 1, S, 512, sms).splits > 1 and fd.fd_plan(B, 1, S, None, sms).splits > 1,
+          "the main flash-decode shape launched a plan without a split")
     # One decode step's shapes: B=32 sequences at position 640 of a 1024 cache.
     args = fd_inputs(32, 1024, 4, 1, 256, [640] * 32, gen)
     times = {}
@@ -715,11 +763,15 @@ def run_attention_checks(gen) -> dict:
         work[0] += layers * (nbytes(q, pos, out) + rows * per_row)
         work[1] += layers * 4 * rows * q.shape[1] * q.shape[2]  # QK and PV, G heads a row
     for window in (None, 512):
+        plan = fd.fd_plan(32, 1, 1024, window, sms)
+        check(plan.blocks >= sms, f"a decode step's flash decode (window {window}) launches "
+                                  f"{plan.blocks} blocks on {sms} SMs")
         times[window] = (cuda_time_ms(lambda: fd.flash_decode_int8(*args, window=window), 50),
                          cuda_time_ms(lambda: fd.flash_decode_int8_reference(*args, window=window),
                                       50))
         print(f"kernel flash_decode B=32 S=1024 pos=640 window={window}: "
-              f"kernel_ms={times[window][0]:.4f} plain_ms={times[window][1]:.4f}", flush=True)
+              f"kernel_ms={times[window][0]:.4f} plain_ms={times[window][1]:.4f} "
+              f"splits={plan.splits} blocks={plan.blocks}", flush=True)
     results["flash_decode"] = {
         "max_abs_err": err_max,
         # Per decode step of the 270M model: 3 global and 15 local layers.
@@ -1051,7 +1103,16 @@ def kernel_counts() -> dict:
 def reset_counts() -> None:
     for module in kernel_modules().values():
         module.launches = 0
-    kernel_modules()["flash_attention"].route_launches.update(mma=0, simt=0)
+    for name in ("flash_attention", "w8a8"):
+        kernel_modules()[name].route_launches.update(mma=0, simt=0)
+
+
+def check_w8a8_on_mma(label: str) -> None:
+    """Every W8A8 launch since the last reset took the tensor-core route."""
+    w8a8 = kernel_modules()["w8a8"]
+    check(w8a8.route_launches == {"mma": w8a8.launches, "simt": 0},
+          f"{label}: W8A8 ran on the routes {w8a8.route_launches}, expected all "
+          f"{w8a8.launches} launches on the tensor cores")
 
 
 def count_launches(fn) -> tuple[int, list[str]]:
@@ -1183,6 +1244,7 @@ def run_window_scoring(model, qparams, a8params, fparams, card) -> tuple[dict, d
         check(routes == {"mma": cfg.num_layers * windows, "simt": 0},
               f"{label} window scoring ran flash attention on the routes {routes}, expected "
               "every launch on the tensor cores")
+        check_w8a8_on_mma(f"{label} window scoring")
         check(math.isfinite(ppl), f"{label} window scoring ppl {ppl} is not finite")
         with plain_kernels():
             ppl_plain, secs_plain = score(params)
@@ -1328,7 +1390,17 @@ def main() -> int:
               f"{big['plain_ms']:.4f}, {op} {big['library_ms']:.4f}, bf16 torch.matmul on "
               f"weights dequantized once {big['bf16_matmul_ms']:.4f} (the dequantize "
               f"{big['dequant_ms']:.4f})", flush=True)
+    a8 = kernel_results["w8a8"]
+    print(f"W8A8, the lm_head (int8 x, L2 cold) on {card}: "
+          + "; ".join(f"M={M} kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                      f"({r['bound_by']}), plain {r['plain_ms']:.4f}, _int_mm "
+                      f"{r['library_ms']:.4f}" for M, r in ((32, a8), (2048, a8["m2048"]))),
+          flush=True)
     kernel_results.update(run_attention_checks(gen))
+    fd = kernel_results["flash_decode"]
+    print(f"flash decode, one decode step's 18 layers (B=32, S=1024, pos=640, 3 global + 15 "
+          f"local, L2 cold) on {card}: kernel {fd['ms']:.4f} ms, plain {fd['plain_ms']:.4f}, "
+          f"bound {fd['bound_ms']:.5f} ({fd['bound_by']})", flush=True)
     fa = kernel_results["flash_attention"]
     print(f"flash attention, one 2048-token window's 18 layers (bf16, 3 global + 15 local, L2 "
           f"cold) on {card}: kernel {fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f}, SDPA {fa['library_ms']:.4f}, bound {fa['bound_ms']:.5f} "
@@ -1360,6 +1432,7 @@ def main() -> int:
     a8_sites = {"w4a8": 4 * layers, "w8a8": 1}
     a8_launches, a8_logits = run_main_path(model, a8params, "W4A8 body, W8A8 head", a8_sites,
                                            a8_sites, exact=True)
+    check_w8a8_on_mma("the A8 arm's lm_head")
     print(f"prefill logits A8 vs W4 arm (quantization error, not gated): mean_abs_diff="
           f"{(a8_logits.float() - w4_logits.float()).abs().mean().item():.4e} "
           f"mean|logit|={w4_logits.float().abs().mean().item():.4e}", flush=True)

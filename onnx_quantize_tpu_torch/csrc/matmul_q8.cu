@@ -27,7 +27,8 @@
 // int8 products take ~23 us at 1,979 TOP/s. Two routes, chosen by the launch
 // plan (ops/kernels/matmul_q8.py::q8_plan):
 //
-// mma (N % 16 == 0, 16-byte-aligned weights): tensor cores.
+// mma (N % 16 == 0, 16-byte-aligned weights): tensor cores, on the s8 core
+// that W8A8 shares (common.cuh).
 //   - mma.sync m16n8k32 s8 x s8 -> s32, without .satfinite: shifted codes
 //     keep |acc| <= 128 * 128 * K < 2^31 for K < 2^17 (the wrapper raises
 //     above that).
@@ -259,39 +260,17 @@ int dispatch_simt(const Q8Args& p, int bm, int bn, cudaStream_t st) {
 
 // ---- mma route ----------------------------------------------------------------
 
-constexpr int kSliceK = 32;            // K rows of one mma (m16n8k32)
-constexpr int kStageK = 64;            // K rows a pipeline stage: two slices
-constexpr int kWStages = 3;            // cp.async ring depth of the weight rows
-constexpr int kXPitch = kStageK + 16;  // bytes a staged x row: ldmatrix's 8 rows
-                                       // fall in distinct bank groups
+constexpr int kSliceK = oqt::kS8SliceK;
+constexpr int kStageK = oqt::kS8StageK;
+constexpr int kWStages = oqt::kS8WStages;
+constexpr int kXPitch = oqt::kS8XPitch;
 
-// A block of WARPS_M x WARPS_N warps; a warp owns WM m-tiles of 16 rows and
-// 32 columns (four n-tiles of 8).
+// The shared s8 tile (common.cuh) and the row sums of the staged codes.
 template <int WM, int WARPS_M, int WARPS_N>
-struct Q8Tile {
-  static constexpr int kBM = WM * 16 * WARPS_M;
-  static constexpr int kBN = 32 * WARPS_N;
-  static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
-  // Staged weight rows: kBN bytes padded to a pitch of 8 (mod 32) words.
-  static constexpr int kWPitch = kBN == 32 ? 32 : kBN + 32;
-  static constexpr int kWBytes = kStageK * kWPitch;
-  static constexpr int kXBytes = kBM * kXPitch;
-  // 16-value x chunks a thread stages per stage; four chunks make a row.
-  static constexpr int kXChunks = kBM * (kStageK / 16) / kThreads;
-  static constexpr int kSmem = kWStages * kWBytes + 2 * kXBytes + kBM * 4;
-  static_assert(kXChunks * kThreads == kBM * (kStageK / 16), "x chunks split evenly");
-  static_assert((kWPitch / 4) % 32 == 8 || (kWPitch / 4) % 32 == 24, "bank-spread pitch");
+struct Q8Tile : oqt::S8Tile<WM, WARPS_M, WARPS_N> {
+  using Base = oqt::S8Tile<WM, WARPS_M, WARPS_N>;
+  static constexpr int kSmem = Base::kRingBytes + Base::kBM * 4;
 };
-
-// c += a (16x32 s8, row) * b (32x8 s8, col), int32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 16 consecutive values of one x row as loaded (float32: 16 words; bf16: 8),
 // and how many of them lie inside the matrix and the block's K range.
@@ -341,7 +320,7 @@ struct XChunk {
   // The 16 shifted codes (0 where not valid) to dst in the mma's k order:
   // position 4t + q holds value t + 4q. Returns their sum.
   __device__ __forceinline__ int stage(int8_t* dst, const QuantIn& qi) const {
-    uint32_t words[4], cols[4];
+    uint32_t words[4];
     int sum = 0;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -355,8 +334,7 @@ struct XChunk {
       }
       words[q] = word;
     }
-    oqt::transpose4x4(words, cols);
-    *reinterpret_cast<uint4*>(dst) = make_uint4(cols[0], cols[1], cols[2], cols[3]);
+    oqt::s8_stage_permuted(dst, words);
     return sum;
   }
 };
@@ -385,17 +363,9 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N) q8_mma_kernel(const Q8
   const QuantIn qi = quant_in(p);
 
   auto load_w = [&](int s) {
-    uint8_t* dst = smem + (s % kWStages) * Tl::kWBytes;
     const int k0 = k_begin + s * kStageK;
-    const int rows = min(kStageK, k_end - k0);
-    constexpr int kRowChunks = Tl::kBN / 16;
-    for (int i = tid; i < rows * kRowChunks; i += Tl::kThreads) {
-      const int r = i / kRowChunks, ch = i % kRowChunks;
-      const int col = n0 + ch * 16;
-      const bool ok = k0 + r < K && col < N;  // N % 16 == 0: a chunk is all in or all out
-      oqt::cp_async16(dst + r * Tl::kWPitch + ch * 16,
-                      ok ? w + static_cast<size_t>(k0 + r) * N + col : w, ok);
-    }
+    oqt::s8_load_w<Tl>(smem + (s % kWStages) * Tl::kWBytes, w, k0, min(kStageK, k_end - k0), K,
+                       N, n0, tid);
   };
 
   // Chunk c of a stage: row c / 4, columns 16 (c % 4) .. + 15.
@@ -447,28 +417,8 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N) q8_mma_kernel(const Q8
     const uint8_t* wb = smem + (s % kWStages) * Tl::kWBytes;
     const int8_t* xb = xbuf + (s & 1) * Tl::kXBytes;
     const int ns = min(kStageK / kSliceK, (k_end - k_begin - s * kStageK) / kSliceK);
-    for (int sl = 0; sl < ns; ++sl) {
-      uint32_t a[WM][4];
-#pragma unroll
-      for (int mt = 0; mt < WM; ++mt)
-        oqt::ldmatrix_x4(a[mt], xb + ((warp_m * WM + mt) * 16 + (lane & 15)) * kXPitch +
-                                    sl * kSliceK + (lane >> 4) * 16);
-      // Rows t + 4q (b0) and 16 + t + 4q (b1) of the slice, columns
-      // 4g .. 4g + 3 of the warp's 32.
-      const uint8_t* wr = wb + (sl * kSliceK + t) * Tl::kWPitch + warp_n * 32 + 4 * g;
-      uint32_t lo[4], hi[4], b0[4], b1[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        lo[q] = *reinterpret_cast<const uint32_t*>(wr + 4 * q * Tl::kWPitch) ^ p.flip;
-        hi[q] = *reinterpret_cast<const uint32_t*>(wr + (16 + 4 * q) * Tl::kWPitch) ^ p.flip;
-      }
-      oqt::transpose4x4(lo, b0);
-      oqt::transpose4x4(hi, b1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int mt = 0; mt < WM; ++mt) mma_s8(acc[mt][j], a[mt], b0[j], b1[j]);
-    }
+    for (int sl = 0; sl < ns; ++sl)
+      oqt::s8_mma_slice<Tl>(acc, xb, wb, sl, warp_m, warp_n, lane, p.flip);
   }
   oqt::cp_async_wait<0>();
 

@@ -133,9 +133,9 @@ def kernel_library() -> ctypes.CDLL:
         lib.oqt_w8_matmul.restype = i
         lib.oqt_w4a8_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.oqt_w4a8_matmul.restype = i
-        lib.oqt_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.oqt_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.oqt_w8a8_matmul.restype = i
-        lib.oqt_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.oqt_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.oqt_flash_decode.restype = i
         lib.oqt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                             ctypes.POINTER(ctypes.c_longlong), i, i, i, i, p]

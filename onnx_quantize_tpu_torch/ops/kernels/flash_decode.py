@@ -8,25 +8,87 @@ int8 cache: ``scores = (q . K_i8) * k_scale[s]``, ``out = (p * v_scale[s]) .
 V_i8``, over the live slots ``max(pos - window + 1, 0) <= s <= pos``.
 
 What bounds it on the card: the live int8 K/V bytes (~10.5 MB per global
-layer at B = 32, 640 live slots, D = 256). One block per (kv head, sequence)
-walks its live range in shared-memory tiles that the group's query heads
-share, so each live byte is read once per step; the source holds the rest of
-the design.
+layer at B = 32, 640 live slots, D = 256). The blocks of a (kv head,
+sequence) pair split its live range in whole 64-key tiles (:func:`fd_plan`
+sets how many, so that the grid fills the SMs; :func:`fd_split_ranges` gives
+each block's keys), each walking its share in shared-memory tiles that the
+group's query heads share, so each live byte is read once per step. The
+splits of a pair form one thread block cluster and merge their partials
+through each other's shared memory, in split order, inside the same launch
+(no scratch, no counters); the source holds the rest of the design.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from onnx_quantize_tpu_torch.ops.kernels import check_launch, kernel_library, ptr, stream_ptr
 
-__all__ = ["flash_decode_int8", "flash_decode_int8_reference"]
+__all__ = ["FdPlan", "fd_plan", "fd_split_ranges", "flash_decode_int8",
+           "flash_decode_int8_reference"]
 
 # Kernel launches since import (or since a caller reset it); counts only
 # launches of the CUDA kernel, never the plain version.
 launches = 0
 
 _NEG_INF = -1e30
+
+# Keys a block stages at a time (the kernel's kTile): a split takes whole tiles.
+KEY_TILE = 64
+# Splits of a live range at most: the splits of a (sequence, kv head) pair
+# form one thread block cluster, and 8 is the portable cluster size.
+MAX_SPLITS = 8
+# The kernel's limits: a thread of its PV phase owns one 4-column word of
+# every head (at most 8) for a quarter of the keys, 256 threads in a block.
+MAX_HEAD_DIM = 256
+MAX_GROUP = 8
+# Blocks a plan aims at, per two SMs: at B = 32 on the H100 six splits (192
+# blocks) beat four and eight, whose clusters of 8 blocks no longer all fit
+# at once.
+BLOCKS_PER_TWO_SMS = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class FdPlan:
+    """How one flash-decode call launches: ``splits`` blocks (one cluster)
+    share each of the ``pairs`` (sequence, kv head) pairs' live range;
+    ``blocks`` in all."""
+
+    splits: int
+    pairs: int
+    blocks: int
+
+
+def fd_plan(B: int, Hkv: int, S: int, window: int | None, sms: int) -> FdPlan:
+    """The launch plan of ``csrc/flash_decode.cu`` for B sequences of an S-slot
+    cache with Hkv KV heads on a card of ``sms`` SMs.
+
+    A live range holds at most ``min(S, window)`` keys, so a split of more than
+    that many 64-key tiles would stay empty, and a cluster holds at most 8.
+    Below that, the plan takes as many splits as give the card 1.5 blocks an
+    SM (one each where the range allows): at B = 32 on one KV head, S = 1024,
+    6 splits (192 blocks), 1-2 tiles a block at position 640 with and without
+    a 512-key window.
+    """
+    live = S if window is None else min(S, window)
+    pairs = B * Hkv
+    splits = max(1, min(-(-live // KEY_TILE), MAX_SPLITS,
+                        BLOCKS_PER_TWO_SMS * sms // (2 * pairs)))
+    return FdPlan(splits, pairs, pairs * splits)
+
+
+def fd_split_ranges(splits: int, pos: int, S: int, window: int | None) -> list[tuple[int, int]]:
+    """The kernel's key ranges ``[first, end)`` of each split for a sequence at
+    position ``pos``: its live range ``[max(pos - window + 1, 0), min(pos, S -
+    1)]`` cut into T tiles of 64 keys from its first key, split z taking tiles
+    ``[z * T // splits, (z + 1) * T // splits)`` (empty where that is empty)."""
+    hi = min(pos, S - 1)
+    lo = 0 if window is None else max(pos - window + 1, 0)
+    tiles = -(-max(hi - lo + 1, 0) // KEY_TILE)
+    return [(lo + KEY_TILE * (z * tiles // splits),
+             min(lo + KEY_TILE * ((z + 1) * tiles // splits), hi + 1)) for z in range(splits)]
 
 
 def flash_decode_int8_reference(q, k_q, k_scale, v_q, v_scale, pos, *, window=None):
@@ -98,9 +160,13 @@ def flash_decode_int8(q, k_q, k_scale, v_q, v_scale, pos, *, window: int | None 
         raise ValueError(f"flash_decode_int8: unsupported device {q.device}")
     B, Hq, D = q.shape
     S, Hkv = k_q.shape[1], k_q.shape[2]
-    if D % 16:
-        raise ValueError(f"flash_decode_int8: head_dim {D} must be a multiple of 16")
+    if D % 16 or D > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"flash_decode_int8: the kernel takes head_dim % 16 == 0 up to "
+                         f"{MAX_HEAD_DIM} and up to {MAX_GROUP} query heads a KV head, got "
+                         f"head_dim {D}, {Hq // Hkv} heads")
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()  # the kernel reads q in 16-byte loads
     operands = [t.contiguous() for t in (k_q, k_scale, v_q, v_scale, pos)]
     if operands[0].data_ptr() % 16 or operands[2].data_ptr() % 16:
         raise ValueError("flash_decode_int8: the K/V cache must be 16-byte aligned")
@@ -108,9 +174,11 @@ def flash_decode_int8(q, k_q, k_scale, v_q, v_scale, pos, *, window: int | None 
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = fd_plan(B, Hkv, S, window, sms)
     err = kernel_library().oqt_flash_decode(
-        ptr(q), ptr(k_q), ptr(k_scale), ptr(v_q), ptr(v_scale), ptr(pos), ptr(out),
-        B, S, Hkv, Hq // Hkv, D, 0 if window is None else int(window), stream_ptr(q.device),
+        ptr(q), ptr(k_q), ptr(k_scale), ptr(v_q), ptr(v_scale), ptr(pos), ptr(out), B, S, Hkv,
+        Hq // Hkv, D, 0 if window is None else int(window), plan.splits, stream_ptr(q.device),
     )
     check_launch(err, "oqt_flash_decode")
     global launches

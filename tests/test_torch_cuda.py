@@ -149,6 +149,48 @@ def test_a8_kernel_matches_plain_and_oracle(case):
         assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
+# W8A8's launch plan, (dtype, group size, K, N, M, route): the lm_head at
+# decode (32 x 64 tiles) and a window-sized M (128 x 128), uint8 shifted by
+# XOR (64 x 128), g128 and g32 tiles with ragged M and N edges, a tile of 1100
+# rows (x padded to 1104), then the simt route: a 16-row group, N % 16 != 0,
+# four columns a thread.
+W8A8_ROUTE_CASES = [
+    ("int8", -1, 640, 262144, 32, "mma"),
+    ("int8", -1, 640, 16384, 2048, "mma"),
+    ("uint8", -1, 640, 1024, 100, "mma"),
+    ("int8", 128, 640, 1008, 37, "mma"),
+    ("uint8", 32, 96, 256, 65, "mma"),
+    ("int8", -1, 1100, 256, 9, "mma"),
+    ("uint8", 16, 96, 128, 7, "simt"),
+    ("int8", -1, 640, 1000, 7, "simt"),
+    ("int8", -1, 640, 40004, 33, "simt"),
+]
+
+
+@pytest.mark.parametrize("case", W8A8_ROUTE_CASES,
+                         ids=lambda c: f"w8a8-{c[5]}-{c[0]}-g{c[1]}-{c[2]}x{c[3]}-M{c[4]}")
+def test_w8a8_routes_bit_equal_to_plain(case):
+    """Each route of W8A8's plan equals the plain version bit for bit (exact
+    int32 tile sums, then the plain version's rounded fold, tile after tile),
+    a second launch gives the same bits, and the route counter names the
+    route the plan chose."""
+    _require_cuda()
+    dtype, gs, K, N, M, route = case
+    qt = _qtensor(dtype, gs, True, K, N, a8=True).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((M, K)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    ops, kw = matmul_w8a8.w8a8_operands(x, qt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert matmul_w8a8.w8a8_plan(M, ops[0].shape[1], N, sms, kw["bk"]).route == route
+    before = dict(matmul_w8a8.route_launches)
+    got = matmul_w8a8.w8a8_matmul(*ops, **kw)
+    again = matmul_w8a8.w8a8_matmul(*ops, **kw)
+    torch.cuda.synchronize()
+    assert matmul_w8a8.route_launches[route] == before[route] + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, matmul_w8a8.w8a8_matmul_plain(*ops, **kw))
+
+
 def test_activation_quantizer_on_card_equals_cpu():
     """The int8 codes and scale on the card are bit-equal to the CPU's."""
     _require_cuda()
@@ -253,13 +295,22 @@ def test_kernel_bf16_stream_engine_runs_on_card():
 
 # (B, S, Hq, Hkv, D, window, pos): ragged pos with 0, tile edges and the
 # pos = S sentinel of an inactive slot; a window smaller than a tile; one
-# query head per KV head; two KV heads; D = 128; S = 128.
+# query head per KV head; two KV heads; D = 128; S = 128; then the launch
+# plan's splits at a decode step of Gemma-3-270M (B = 32, S = 1024, pos =
+# 640: clusters of 6 splits, with and without a window of 512) and at B =
+# 32, S = 4096 with ragged positions (6 splits; pos 0 has one live key, so
+# all but one of its splits are empty).
+FD_RAGGED = [0, 63, 64, 511, 512, 4095, 4096] + list(range(100, 4000, 156))[:25]
 FD_CASES = [
     (4, 512, 4, 1, 256, None, [0, 63, 64, 512]),
     (4, 512, 4, 1, 256, 40, [0, 39, 300, 512]),
     (3, 128, 2, 2, 128, None, [127, 0, 128]),
     (2, 256, 8, 2, 128, 16, [255, 17]),
     (2, 128, 4, 2, 64, 130, [5, 128]),
+    (32, 1024, 4, 1, 256, None, [640] * 32),
+    (32, 1024, 4, 1, 256, 512, [640] * 32),
+    (32, 4096, 4, 1, 256, None, FD_RAGGED),
+    (32, 4096, 4, 1, 256, 512, FD_RAGGED),
 ]
 
 
@@ -276,14 +327,18 @@ def _fd_inputs(B, S, Hq, Hkv, D, pos, seed=0):
                          ids=lambda c: f"B{c[0]}-S{c[1]}-{c[2]}on{c[3]}-D{c[4]}-w{c[5]}")
 def test_flash_decode_kernel_matches_plain(case):
     """Kernel within 1e-4 of max|out| of its plain version: the same float32
-    products, summed in another order; finite at the pos = S sentinel."""
+    products, summed in another order; finite at the pos = S sentinel. The
+    split and the cluster's merge are deterministic: a second launch gives
+    the same bits."""
     _require_cuda()
     B, S, Hq, Hkv, D, window, pos = case
     args = _fd_inputs(B, S, Hq, Hkv, D, pos)
     before = flash_decode.launches
     got = flash_decode.flash_decode_int8(*args, window=window)
+    again = flash_decode.flash_decode_int8(*args, window=window)
     torch.cuda.synchronize()
-    assert flash_decode.launches == before + 1
+    assert flash_decode.launches == before + 2
+    assert torch.equal(got, again)
     want = flash_decode.flash_decode_int8_reference(*args, window=window)
     assert bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
