@@ -17,17 +17,18 @@ Phases (any failed check exits non-zero; each prints its seconds):
    N, a pad group, signed and unsigned weights, uint8 shifted by 128, group
    tiles, a tile past 1024 rows), in bfloat16 and float32, and the lm_head
    at a scoring window's M=2048. W4 also at M = 1, 16, 33, 64, 65 and 2048
-   (every route of its launch plan, printed with each case: tensor-core mma
-   with and without the K split, the CUDA-core route), twice per case with
-   the same bits, timed at M=32 and 2048; W8 on the lm_head also at a
-   scoring window's M=2048. Yardsticks the port never calls, on the same
+   (every route of its launch plan: tensor-core mma with and without the K
+   split, the CUDA-core route), timed at M=32 and 2048; W8 on the lm_head
+   also at a scoring window's M=2048, and on its mma route with a K split at
+   odd shapes. Every case prints its launch plan and gives the same bits
+   twice; W8, W4A8 and W8A8 take the route their plan names, and W4A8 and
+   W8A8 give their plain versions' bits (K-split counters, and W4A8's
+   scratch, back at 0). Yardsticks the port never calls, on the same
    operands: ``torch._weight_int4pack_mm`` (W4 body sites),
-   ``torch._weight_int8pack_mm`` (W8 lm_head), at M=2048 for both also
-   dequantize-then-``torch.matmul`` in bf16, and ``torch._int_mm`` (W8A8
-   lm_head at M=32 and 2048, and the int32 core of Q8). W8A8 is bit-equal
-   to its plain version, twice, on the route its launch plan names (s8
-   tensor-core mma, the CUDA-core route for N % 16 != 0 or 16-row groups),
-   each case's plan printed. Q8 (QLINEAR) on one layer's seven
+   ``torch._weight_int8pack_mm`` (W8 lm_head), dequantize-then-
+   ``torch.matmul`` in bf16 (W4 at M=2048, W8 at M=32 and 2048), and
+   ``torch._int_mm`` (W8A8 lm_head at M=32 and 2048, and the int32 cores of
+   W4A8, on the nibbles widened to int8, and of Q8). Q8 (QLINEAR) on one layer's seven
    site shapes at M=32 and 4096 and at odd shapes (ragged M, K=100 and
    1000, N = 40, 100 and 130, int8 and uint8 weights, symmetric and not, per
    tensor and per channel, with and without an int32 bias), bit-equal to its
@@ -56,8 +57,8 @@ Phases (any failed check exits non-zero; each prints its seconds):
    against the same engine with the kernels swapped for their plain versions.
    Then the A8 arm: ``convert_to_w4a8`` of the same tree (W4A8 on every body
    site, W8A8 on the lm_head), through the same sequence and checks, which
-   for it require logits and greedy tokens equal to the plain run's, and
-   every W8A8 launch of its lm_head on the tensor-core route. Then
+   for it require logits and greedy tokens equal to the plain run's. In
+   every arm each W8, W4A8 and W8A8 launch is on the tensor-core route. Then
    the Q8 arm: the body calibrated on the card (8x128 seeded token ids) and
    quantized QLINEAR (int8 per-channel weights, static uint8 activations),
    the int8 weight-only lm_head, fusion (which leaves every QLINEAR site
@@ -75,9 +76,9 @@ Phases (any failed check exits non-zero; each prints its seconds):
    seeded 4096-token stream (windows of 2048, stride 512: 5 windows), which
    runs flash attention in every layer. Checks the launch counts per window,
    a finite result, and the mean NLL against the same run with every kernel
-   swapped for its plain version, for the W4 and the A8 model; for the A8
-   model also an equal ppl with only its two matmul kernels swapped and its
-   lm_head on W8A8's tensor-core route; prints
+   swapped for its plain version, for the W4 and the A8 model, every W8, W4A8
+   and W8A8 launch on the tensor-core route; for the A8 model also an equal
+   ppl with only its two matmul kernels swapped; prints
    the bf16 model's ppl beside them.
 7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 640 tokens through
    an engine with an int8 cache and ``fused_attention=True`` (flash decode in
@@ -284,13 +285,22 @@ KERNEL_CASES = [
     ("odd_w8_i8_n40004", "w8", 640, 40004, "int8", -1, True, (5, 33), False),
     ("odd_w8_u8_asym_n1000", "w8", 640, 1000, "uint8", -1, False, (7, 65), False),
     ("odd_w8_u8_g128", "w8", 640, 999, "uint8", 128, False, (31,), False),
+    # W8's mma route with a K split: g32 tiles that the splits straddle
+    # (ragged M and N tile edges) and an int8 channel scale.
+    ("odd_w8_u8_asym_g32_n1008", "w8", 640, 1008, "uint8", 32, False, (5, 70), False),
+    ("odd_w8_i8_n1008", "w8", 640, 1008, "int8", -1, True, (33,), False),
+    # The x-stationary form with a zero point (two warps along M) and at
+    # K = 1024 (64 resident x rows), with ragged M and N edges.
+    ("odd_w8_u8_asym_n65552", "w8", 640, 65552, "uint8", -1, False, (400,), False),
+    ("odd_w8_i8_k1024_n65552", "w8", 1024, 65552, "int8", -1, True, (200,), False),
     # The A8 arm's sites (dynamic int8 activations): W4A8 on the body, W8A8
     # on the lm_head, also at a scoring window's M=2048; then odd shapes: a
     # pad group with a ragged N, int4 with ragged M, uint8 symmetric (shifted
     # by 128), group tiles, 4 columns per thread at M > 32 with a ragged
     # edge, a tile of 1100 rows (past the plain version's exact chunks; W8A8's
     # mma route pads x to 1104), and uint8 g128 tiles with ragged M and N
-    # edges on W8A8's mma route.
+    # edges on W8A8's mma route; W4A8's mma route with a K split (g32, and
+    # int4 g64 with a pad group).
     ("qkv", "w4a8", 640, 1536, "uint4", 128, False, (32, 4096), True),
     ("o", "w4a8", 1024, 640, "uint4", 128, False, (32, 4096), True),
     ("gate_up", "w4a8", 640, 4096, "uint4", 128, False, (32, 4096), True),
@@ -298,6 +308,8 @@ KERNEL_CASES = [
     ("lm_head", "w8a8", 640, 262144, "int8", -1, True, (32, 2048), True),
     ("odd_w4a8_u4_k320_g64_n200", "w4a8", 320, 200, "uint4", 64, False, (5, 37), False),
     ("odd_w4a8_i4_sym_n20000", "w4a8", 640, 20000, "int4", 128, True, (3, 70), False),
+    ("odd_w4a8_u4_g32_n1008", "w4a8", 640, 1008, "uint4", 32, False, (5, 70), False),
+    ("odd_w4a8_i4_g64_k448_n208", "w4a8", 448, 208, "int4", 64, True, (3, 40), False),
     ("odd_w8a8_u8_sym_n1000", "w8a8", 640, 1000, "uint8", -1, True, (7, 65), False),
     ("odd_w8a8_i8_g128_n999", "w8a8", 640, 999, "int8", 128, True, (31,), False),
     ("odd_w8a8_i8_n40004", "w8a8", 640, 40004, "int8", -1, True, (5, 33), False),
@@ -312,8 +324,9 @@ KERNEL_CASES = [
 # The A8 kernels' integer partials are exact on both sides (int32 in the
 # kernel, float32 below 2^24 in the plain version), and their float32
 # epilogue runs the plain version's rounded operations in its order, so they
-# agree bit for bit; the same 1e-4 is their bar, and W8A8 (either route of its
-# plan) must also give its plain version's bits exactly, twice.
+# agree bit for bit; the same 1e-4 is their bar, and W4A8 and W8A8 (either
+# route of their plans) must also give their plain versions' bits exactly,
+# twice.
 REL_TOL = 1e-4
 # The operands' type for the operation peak: bf16 x for W4/W8, int8 for A8.
 MATMUL_KIND = {"w4": "bf16", "w8": "bf16", "w4a8": "int8", "w8a8": "int8"}
@@ -343,28 +356,65 @@ W4_TIMED = (32, 2048)
 INT8PACK_ITERS_M2048 = 3
 
 
-def run_kernel_checks(gen) -> dict:
-    """W4/W8/W4A8/W8A8 against their plain versions; the M=32 numbers go to
-    the kernels line; W4 (a layer's four sites), W8 and W8A8 (the lm_head)
-    also at M=2048 (``results[kernel]["m2048"]``), beside their bounds and
-    yardsticks. W4 must give the same bits twice, W8A8 its plain version's
-    bits twice on the route its plan names."""
-    from onnx_quantize_tpu_torch.ops.kernels import matmul_w8a8
-    from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import w4_plan
+def kernel_plan(kernel: str, M: int, K: int, N: int, kw, xdt, sms: int):
+    """The launch plan the wrapper of ``kernel`` makes for x (M, K) of
+    ``xdt`` (as the wrapper takes it: padded, or quantized for the A8 kernels)
+    against N weight columns."""
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4, matmul_w4a8, matmul_w8, matmul_w8a8
 
+    if kernel == "w4":
+        return matmul_w4.w4_plan(M, K, N, kw["gs"], xdt, sms)
+    if kernel == "w8":
+        return matmul_w8.w8_plan(M, K, N, kw["bk"], xdt, sms)
+    if kernel == "w4a8":
+        return matmul_w4a8.w4a8_plan(M, K, N, kw["gs"], sms)
+    return matmul_w8a8.w8a8_plan(M, K, N, sms, kw["bk"])
+
+
+def widened_int8(data, gs: int, signed: bool):
+    """Packed group-pair nibbles (K_pad/2, N) as the logical (K_pad, N) int8
+    weight: the operand of the int32 core on W4A8's codes."""
+    half_rows, N = data.shape
+    w = data.reshape(half_rows // gs, gs, N)
+    nib = torch.stack([w & 0x0F, w >> 4], dim=1).to(torch.int8)  # (pairs, 2, gs, N)
+    if signed:
+        nib = torch.where(nib > 7, nib - 16, nib)
+    return nib.reshape(2 * half_rows, N).contiguous()
+
+
+def split_scratch_clear() -> bool:
+    """Every K-split counter is back at 0, and W4A8's partials too."""
+    from onnx_quantize_tpu_torch.ops.kernels import SPLIT_SCRATCH
+
+    return all(not counters.any() and (key[2] != "W4A8Plan" or not parts.any())
+               for key, (parts, counters) in SPLIT_SCRATCH.items())
+
+
+def run_kernel_checks(gen) -> dict:
+    """W4/W8/W4A8/W8A8 against their plain versions, each case's launch plan
+    printed; the M=32 numbers go to the kernels line; W4 (a layer's four
+    sites), W8 and W8A8 (the lm_head) also at M=2048
+    (``results[kernel]["m2048"]``), W4A8 (a layer's four sites) at M=4096
+    (``results["w4a8"]["m4096"]``), beside their bounds and yardsticks. Every
+    kernel must give the same bits twice, and W8/W4A8/W8A8 take the route
+    their plan names; W4A8 and W8A8 must give their plain versions' bits."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
                    "library_ms": None} for k in MATMUL_KIND}
     big = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_matmul_ms": 0.0,
                "dequant_ms": 0.0, "bytes": 0, "ops": 0} for k in BF16_LIBRARY}
-    big_a8 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    big_a8 = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+              for k in ("w8a8", "w4a8")}
     for name, kernel, K, N, dtype, gs, sym, rows, timed in KERNEL_CASES:
         qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"))
+        module = kernel_modules()[kernel]
         for M in rows:
             for xdt in (torch.bfloat16, torch.float32):
                 x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
                 wrapper, plain, ops, kw = kernel_operands(kernel, qt, x)
+                routes = dict(getattr(module, "route_launches", {}))
                 y = wrapper(*ops, **kw)
+                again = wrapper(*ops, **kw)
                 ref = plain(*ops, **kw)
                 torch.cuda.synchronize()
                 err = (y - ref).abs().max().item()
@@ -372,23 +422,19 @@ def run_kernel_checks(gen) -> dict:
                 check(bool(torch.isfinite(y).all()), f"{name} M={M} {xdt}: non-finite output")
                 check(err <= REL_TOL * scale,
                       f"{name} M={M} {xdt}: max abs err {err:.3e} > {REL_TOL} * {scale:.3e}")
-                line = f"kernel {kernel} {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e}"
-                if kernel == "w8a8":
-                    plan = matmul_w8a8.w8a8_plan(M, ops[0].shape[1], N, sms, kw["bk"])
-                    routes = dict(matmul_w8a8.route_launches)
-                    check(torch.equal(y, ref) and torch.equal(wrapper(*ops, **kw), y),
-                          f"{name} M={M} {xdt}: W8A8 is not bit-equal to its plain version "
-                          "twice")
-                    check(matmul_w8a8.route_launches[plan.route] == routes[plan.route] + 1,
-                          f"{name} M={M}: W8A8 did not take its plan's {plan.route} route")
-                    line += (f" plan={plan.route} {plan.bm}x{plan.bn} blocks={plan.blocks} "
-                             "bits=equal")
-                if kernel == "w4":
-                    check(torch.equal(wrapper(*ops, **kw), y), f"{name} M={M} {xdt}: two W4 "
-                                                               "launches differ")
-                    plan = w4_plan(M, ops[0].shape[1], N, kw["gs"], xdt, sms)
-                    line += (f" plan={plan.route} {plan.bm}x{plan.bn} splits={plan.splits} "
-                             f"blocks={plan.blocks}")
+                check(torch.equal(again, y), f"{name} M={M} {xdt}: two {kernel} launches differ")
+                plan = kernel_plan(kernel, M, ops[0].shape[1], N, kw, xdt, sms)
+                line = (f"kernel {kernel} {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e} "
+                        f"plan={plan.route} {plan.bm}x{plan.bn} "
+                        f"splits={getattr(plan, 'splits', 1)} blocks={plan.blocks}")
+                if routes:
+                    check(module.route_launches[plan.route] == routes[plan.route] + 2,
+                          f"{name} M={M}: {kernel} did not take its plan's {plan.route} route")
+                if kernel in ("w4a8", "w8a8"):
+                    check(torch.equal(y, ref), f"{name} M={M} {xdt}: {kernel} is not bit-equal "
+                                               "to its plain version twice")
+                    line += " bits=equal"
+                check(split_scratch_clear(), f"{name} M={M}: K-split scratch not back at 0")
                 res = results[kernel]
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 if (timed and xdt == torch.bfloat16
@@ -410,22 +456,34 @@ def run_kernel_checks(gen) -> dict:
 
                         q_ms = cuda_time_ms(lambda: quantize_activation_int8(x), iters)
                         line += f" quantizer_ms={q_ms:.4f}"
-                    if kernel == "w8a8":
-                        lib_ms, ref32 = int_mm_ms(ops[0], ops[2], iters)
-                        lib = ref32.float() * (ops[1] * ops[3])  # scaled as the kernel does
-                        lib_err = (lib - y).abs().max().item()
-                        del ref32, lib
-                        check(lib_err <= REL_TOL * scale,
-                              f"{name} M={M}: _int_mm disagrees by {lib_err:.3e}")
-                        line += f" int_mm_ms={lib_ms:.4f} int_mm_err={lib_err:.3e}"
+                    if kernel in ("w4a8", "w8a8"):
+                        if kernel == "w8a8":
+                            lib_ms, ref32 = int_mm_ms(ops[0], ops[2], iters)
+                            lib = ref32.float() * (ops[1] * ops[3])  # scaled as the kernel does
+                            lib_err = (lib - y).abs().max().item()
+                            del ref32, lib
+                            check(lib_err <= REL_TOL * scale,
+                                  f"{name} M={M}: _int_mm disagrees by {lib_err:.3e}")
+                            line += f" int_mm_ms={lib_ms:.4f} int_mm_err={lib_err:.3e}"
+                        else:
+                            # The int32 core on the same codes: x_q against the
+                            # nibbles widened to an int8 (K_pad, N) weight.
+                            w8 = widened_int8(ops[2], kw["gs"], kw["signed"])
+                            lib_ms, ref32 = int_mm_ms(ops[0], w8, iters)
+                            exact = (ops[0].double() @ w8.double()).to(torch.int32)
+                            check(torch.equal(ref32, exact),
+                                  f"{name} M={M}: _int_mm disagrees with the exact integer dot")
+                            del w8, ref32, exact
+                            line += f" int_mm_int32_core_ms={lib_ms:.4f}"
                         if M == 32:
-                            res["library_ms"] = lib_ms
-                        else:  # a scoring window's lm_head
-                            big_a8["ms"] += ms
-                            big_a8["plain_ms"] += plain_ms
-                            big_a8["library_ms"] += lib_ms
-                            big_a8["bytes"] += nbytes(*ops, y)
-                            big_a8["ops"] += 2 * M * K * N
+                            res["library_ms"] = (res["library_ms"] or 0.0) + lib_ms
+                        else:  # a scoring window's lm_head; a 32x128 prefill's sites
+                            acc = big_a8[kernel]
+                            acc["ms"] += ms
+                            acc["plain_ms"] += plain_ms
+                            acc["library_ms"] += lib_ms
+                            acc["bytes"] += nbytes(*ops, y)
+                            acc["ops"] += 2 * M * K * N
                     if kernel in BF16_LIBRARY and M in W4_TIMED:
                         op, lib_fn = BF16_LIBRARY[kernel]
                         lib_ms, lib = lib_fn(x, qt, INT8PACK_ITERS_M2048
@@ -436,13 +494,17 @@ def run_kernel_checks(gen) -> dict:
                         line += f" {op}_ms={lib_ms:.4f} {op}_err={lib_err:.3e}"
                         if M == 32:
                             res["library_ms"] = (res["library_ms"] or 0.0) + lib_ms
-                    if kernel in BF16_LIBRARY and M == 2048:
+                    if kernel in BF16_LIBRARY and (M == 2048 or kernel == "w8" and M == 32):
                         mm_ms, dq_ms, dq = dequant_matmul_ms(x, qt)
                         dq_err = (dq.float() - y).abs().max().item()
                         check(dq_err <= LIBRARY_BF16_REL_TOL * scale,
                               f"{name} M={M}: dequantize-then-matmul disagrees by {dq_err:.3e}")
                         line += (f" bf16_matmul_ms={mm_ms:.4f} (after a one-time dequantize of "
                                  f"{dq_ms:.4f} ms) dequant_matmul_err={dq_err:.3e}")
+                        del dq
+                    if M == 32 and kernel == "w8":
+                        res["bf16_matmul_ms"], res["dequant_ms"] = mm_ms, dq_ms
+                    if kernel in BF16_LIBRARY and M == 2048:
                         acc = big[kernel]
                         acc["ms"] += ms
                         acc["plain_ms"] += plain_ms
@@ -458,9 +520,10 @@ def run_kernel_checks(gen) -> dict:
     for kernel, acc in big.items():
         acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("ops"), "bf16")
         results[kernel]["m2048"] = acc
-    big_a8["bound_ms"], big_a8["bound_by"] = bound(big_a8.pop("bytes"), big_a8.pop("ops"),
-                                                   "int8")
-    results["w8a8"]["m2048"] = big_a8
+    for kernel, acc in big_a8.items():
+        acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("ops"), "int8")
+    results["w8a8"]["m2048"] = big_a8["w8a8"]
+    results["w4a8"]["m4096"] = big_a8["w4a8"]
     return results
 
 
@@ -1038,6 +1101,7 @@ def run_main_path(model, qparams, label: str, prefill_want: dict, step_want: dic
     print(f"greedy tokens equal over {cmp_steps} steps, kernel vs plain ({label}): {agree:.4f}",
           flush=True)
     check(not exact or agree == 1.0, f"{label} greedy tokens differ from the plain run's")
+    check_on_mma(label)
     return total, logits
 
 
@@ -1103,16 +1167,22 @@ def kernel_counts() -> dict:
 def reset_counts() -> None:
     for module in kernel_modules().values():
         module.launches = 0
-    for name in ("flash_attention", "w8a8"):
+    for name in ROUTED:
         kernel_modules()[name].route_launches.update(mma=0, simt=0)
 
 
-def check_w8a8_on_mma(label: str) -> None:
-    """Every W8A8 launch since the last reset took the tensor-core route."""
-    w8a8 = kernel_modules()["w8a8"]
-    check(w8a8.route_launches == {"mma": w8a8.launches, "simt": 0},
-          f"{label}: W8A8 ran on the routes {w8a8.route_launches}, expected all "
-          f"{w8a8.launches} launches on the tensor cores")
+# The kernels whose wrappers count their launches by route.
+ROUTED = ("flash_attention", "w8", "w4a8", "w8a8")
+
+
+def check_on_mma(label: str, names=("w8", "w4a8", "w8a8")) -> None:
+    """Every launch of the ``names`` kernels since the last reset took the
+    tensor-core route."""
+    for name in names:
+        module = kernel_modules()[name]
+        check(module.route_launches == {"mma": module.launches, "simt": 0},
+              f"{label}: {name} ran on the routes {module.route_launches}, expected all "
+              f"{module.launches} launches on the tensor cores")
 
 
 def count_launches(fn) -> tuple[int, list[str]]:
@@ -1129,9 +1199,11 @@ def count_launches(fn) -> tuple[int, list[str]]:
     return len(names), [n[:40] for n in names]
 
 
-MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w4_mma|w8|q8|q8_mma|mlp_w4)_kernel\b")
+# Kernel names (the mma routes' kernels, W8's x-stationary form among them).
+MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w8|q8|mlp_w4)(_mma(_xs)?)?_kernel\b")
 Q8_KERNEL_NAME = re.compile(r"\bq8(_mma)?_kernel\b")
 W4_KERNEL_NAME = re.compile(r"\bw4(_mma)?_kernel\b")
+W8_KERNEL_NAME = re.compile(r"\bw8(_mma(_xs)?)?_kernel\b")
 
 
 def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
@@ -1196,7 +1268,7 @@ def profile_window(model, params) -> dict:
     total = busy()
     return {"launches": len(events), "busy_ms": total, "wall_ms": wall_ms,
             "idle_share": 1.0 - total / wall_ms, "w4_ms": busy(W4_KERNEL_NAME),
-            "w8_ms": busy(re.compile(r"\bw8_kernel\b")),
+            "w8_ms": busy(W8_KERNEL_NAME),
             "flash_attention_ms": busy(re.compile(r"flash_attention"))}
 
 
@@ -1244,7 +1316,7 @@ def run_window_scoring(model, qparams, a8params, fparams, card) -> tuple[dict, d
         check(routes == {"mma": cfg.num_layers * windows, "simt": 0},
               f"{label} window scoring ran flash attention on the routes {routes}, expected "
               "every launch on the tensor cores")
-        check_w8a8_on_mma(f"{label} window scoring")
+        check_on_mma(f"{label} window scoring")
         check(math.isfinite(ppl), f"{label} window scoring ppl {ppl} is not finite")
         with plain_kernels():
             ppl_plain, secs_plain = score(params)
@@ -1383,9 +1455,11 @@ def main() -> int:
         res = kernel_results[kernel]
         big = res["m2048"]
         op = BF16_LIBRARY[kernel][0]
+        dq32 = (f", bf16 torch.matmul on weights dequantized once {res['bf16_matmul_ms']:.4f}"
+                if "bf16_matmul_ms" in res else "")
         print(f"{what} (bf16 x, L2 cold) on {card}: M=32 kernel "
               f"{res['ms']:.4f} ms, bound {res['bound_ms']:.5f} ({res['bound_by']}), plain "
-              f"{res['plain_ms']:.4f}, {op} {res['library_ms']:.4f}; M=2048 kernel "
+              f"{res['plain_ms']:.4f}, {op} {res['library_ms']:.4f}{dq32}; M=2048 kernel "
               f"{big['ms']:.4f} ms, bound {big['bound_ms']:.5f} ({big['bound_by']}), plain "
               f"{big['plain_ms']:.4f}, {op} {big['library_ms']:.4f}, bf16 torch.matmul on "
               f"weights dequantized once {big['bf16_matmul_ms']:.4f} (the dequantize "
@@ -1395,6 +1469,12 @@ def main() -> int:
           + "; ".join(f"M={M} kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} "
                       f"({r['bound_by']}), plain {r['plain_ms']:.4f}, _int_mm "
                       f"{r['library_ms']:.4f}" for M, r in ((32, a8), (2048, a8["m2048"]))),
+          flush=True)
+    a8 = kernel_results["w4a8"]
+    print(f"W4A8, a layer's four body sites (int8 x, L2 cold) on {card}: "
+          + "; ".join(f"M={M} kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                      f"({r['bound_by']}), plain {r['plain_ms']:.4f}, _int_mm (int32 core) "
+                      f"{r['library_ms']:.4f}" for M, r in ((32, a8), (4096, a8["m4096"]))),
           flush=True)
     kernel_results.update(run_attention_checks(gen))
     fd = kernel_results["flash_decode"]
@@ -1432,7 +1512,6 @@ def main() -> int:
     a8_sites = {"w4a8": 4 * layers, "w8a8": 1}
     a8_launches, a8_logits = run_main_path(model, a8params, "W4A8 body, W8A8 head", a8_sites,
                                            a8_sites, exact=True)
-    check_w8a8_on_mma("the A8 arm's lm_head")
     print(f"prefill logits A8 vs W4 arm (quantization error, not gated): mean_abs_diff="
           f"{(a8_logits.float() - w4_logits.float()).abs().mean().item():.4e} "
           f"mean|logit|={w4_logits.float().abs().mean().item():.4e}", flush=True)

@@ -1,15 +1,15 @@
 // Shared pieces of the hand-written matmul kernels.
 //
-// The CUDA-core kernels (W8, W4A8, W8A8, and the simt routes of W4 and Q8)
-// use one block shape: 32 threads along N (one warp reads consecutive
-// columns of a weight row, so its loads coalesce) times 8 warps along M.
-// Each thread owns CPT adjacent columns and RPT rows of M, strided by 8 so
-// that a warp's reads of the staged activations all hit the same
-// shared-memory word (a broadcast). Activations are staged through shared
-// memory, RC rows of K at a time. The tensor-core routes of W4, Q8, W8A8 and
-// flash attention pick their own tiles (their launch plans) and share the
-// cp.async, ldmatrix and mma helpers at the end of this file; Q8 and W8A8 also
-// share the s8 mma core there.
+// The CUDA-core (simt) routes of W4, W8, W4A8, W8A8 and Q8 use one block
+// shape: 32 threads along N (one warp reads consecutive columns of a weight
+// row, so its loads coalesce) times 8 warps along M. Each thread owns CPT
+// adjacent columns and RPT rows of M, strided by 8 so that a warp's reads of
+// the staged activations all hit the same shared-memory word (a broadcast).
+// Activations are staged through shared memory, RC rows of K at a time. The
+// tensor-core routes of W4, W8, W4A8, W8A8, Q8 and flash attention pick
+// their own tiles (their launch plans) and share the cp.async, ldmatrix and
+// mma helpers at the end of this file; Q8, W8A8 and W4A8 also share the s8
+// mma core there.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -138,6 +138,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// d = a * b + c on bf16x2 registers, one rounding (exact where the result is).
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+constexpr uint32_t kBf16x2Ones = 0x3F803F80u;  // bf16x2 (1, 1)
 
 // ---- the s8 tensor-core core of the Q8 and W8A8 mma routes --------------------
 //

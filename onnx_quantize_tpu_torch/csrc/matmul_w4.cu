@@ -219,13 +219,9 @@ using oqt::cp_async_wait;
 using oqt::ldmatrix_x4;
 using oqt::mma_bf16;
 
-__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
+using oqt::bf16x2_fma;
 
-constexpr uint32_t kOnes = 0x3F803F80u;  // bf16x2 (1, 1)
+constexpr uint32_t kOnes = oqt::kBf16x2Ones;
 
 // Byte j of the words a (row k) and b (row k + 1) of a column, as two bf16x2
 // registers (row k in the low half): the low nibbles and the high nibbles,

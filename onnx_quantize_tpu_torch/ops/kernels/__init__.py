@@ -29,8 +29,8 @@ from typing import Callable
 import torch
 
 __all__ = ["register_kernel", "select_kernel", "pad_to_multiple", "kernel_library",
-           "build_kernel_library", "check_launch", "ptr", "stream_ptr", "use_four_columns",
-           "four_columns_fill", "split_scratch"]
+           "build_kernel_library", "check_launch", "ptr", "stream_ptr", "four_columns_fill",
+           "split_scratch"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -129,9 +129,9 @@ def kernel_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.oqt_w4_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
         lib.oqt_w4_matmul.restype = i
-        lib.oqt_w8_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.oqt_w8_matmul.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p]
         lib.oqt_w8_matmul.restype = i
-        lib.oqt_w4a8_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.oqt_w4a8_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
         lib.oqt_w4a8_matmul.restype = i
         lib.oqt_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.oqt_w8a8_matmul.restype = i
@@ -170,27 +170,24 @@ def four_columns_fill(N: int, sms: int) -> bool:
     return N % 4 == 0 and -(-N // 128) >= sms
 
 
-def use_four_columns(N: int, device: torch.device) -> bool:
-    """:func:`four_columns_fill` on ``device``'s SMs."""
-    return four_columns_fill(N, torch.cuda.get_device_properties(device).multi_processor_count)
-
-
-# Scratch of the K split of the tensor-core kernels (W4, Q8), per (device,
-# stream, tiles, splits, tile size): the partial tiles (4-byte elements,
-# float32 for W4, int32 for Q8) and one counter a tile. Made once; each
-# kernel leaves every counter at 0 when it ends. Launches that share an entry
-# run in the order of their one stream (or of a graph replayed on it).
+# Scratch of the K split of the tensor-core kernels (W4, W8, Q8, W4A8), per
+# (device, stream, plan type, tiles, splits, scratch size): the partials
+# (4-byte elements: float32 tiles for W4 and W8, int32 tiles for Q8, int32
+# per-group dots and row sums for W4A8) and one counter a tile, made zeroed
+# once. Each kernel leaves every counter at 0 when it ends (W4A8 its partials
+# too, which it adds into). Launches that share an entry run in the order of
+# their one stream (or of a graph replayed on it).
 SPLIT_SCRATCH: dict = {}
 
 
 def split_scratch(device: torch.device, plan) -> tuple[torch.Tensor, torch.Tensor]:
-    """(partials, counters) for a launch ``plan`` with ``tiles``, ``splits``,
-    ``bm``, ``bn`` and ``blocks`` that splits K."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream, plan.tiles, plan.splits,
-           plan.bm * plan.bn)
+    """(partials, counters) for a launch ``plan`` with ``tiles``, ``splits``
+    and ``scratch_elems`` that splits K."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream, type(plan).__name__,
+           plan.tiles, plan.splits, plan.scratch_elems)
     scratch = SPLIT_SCRATCH.get(key)
     if scratch is None:
-        scratch = (torch.empty(plan.blocks * plan.bm * plan.bn, dtype=torch.int32, device=device),
+        scratch = (torch.zeros(plan.scratch_elems, dtype=torch.int32, device=device),
                    torch.zeros(plan.tiles, dtype=torch.int32, device=device))
         SPLIT_SCRATCH[key] = scratch
     return scratch

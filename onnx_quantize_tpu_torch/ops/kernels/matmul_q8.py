@@ -90,6 +90,11 @@ class Q8Plan:
     def tiles(self) -> int:
         return self.blocks // self.splits
 
+    @property
+    def scratch_elems(self) -> int:
+        """4-byte elements of K-split scratch: a partial tile a block."""
+        return self.blocks * self.bm * self.bn
+
 
 def _tiles(M: int, N: int, bm: int, bn: int) -> int:
     return -(-M // bm) * -(-N // bn)

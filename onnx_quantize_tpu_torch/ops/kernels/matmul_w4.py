@@ -74,6 +74,11 @@ class W4Plan:
     def tiles(self) -> int:
         return self.blocks // self.splits
 
+    @property
+    def scratch_elems(self) -> int:
+        """4-byte elements of K-split scratch: a partial tile a block."""
+        return self.blocks * self.bm * self.bn
+
 
 def w4_plan(M: int, K_pad: int, N: int, gs: int, x_dtype: torch.dtype, sms: int) -> W4Plan:
     """The launch plan of ``csrc/matmul_w4.cu`` for x (M, K_pad) of ``x_dtype``

@@ -9,11 +9,20 @@ prologue runs outside its kernel); the kernel dots the int8 codes against
 the raw nibbles in int32 and folds the zero point in through the int32 sum
 of the codes: ``(x_q . w - sum(x_q) * zp) * (sx * s)`` per group.
 
-What bounds it on the card: one Gemma-3-270M layer's four sites at decode
-(M = 32) read ~3.5 MB of packed weights and scales and write ~0.9 MB of
-float32, ~1.3 us at 3.35 TB/s; the kernel runs its integer dot products as
-``__dp4a`` on the CUDA cores, which at M = 32 cost more than the bytes.
-``PERF.md`` holds its times beside the plain version's.
+What bounds it on the card: bytes. One Gemma-3-270M layer's four sites at
+decode (M = 32) read ~3.5 MB of packed weights and scales and write ~0.9 MB
+of float32, ~1.4 us at 3.35 TB/s. The dot runs on the tensor cores
+(``mma.sync`` m16n8k32 s8, the Q8 kernel's core, each packed weight word
+feeding one mma of its low nibbles and one of its high ones), and at decode
+K is split until the grid fills the SMs: the splits add their per-group
+int32 sums (exact in any order) into the tile's scratch, and the last block
+folds every pair into float32 in the plain version's order, so the two stay
+bit-equal. N % 16 != 0, a group size that is not a multiple of 32, an
+operand off a 16-byte boundary or K_pad >= 2^17 keeps the ``__dp4a`` kernel
+of the first port. :func:`w4a8_plan` chooses the route, the tile and the
+split; the source note in ``csrc/matmul_w4a8.cu`` gives the design.
+``PERF.md`` holds its times beside the plain version's and ``torch._int_mm``'s
+on the int32 core (a yardstick the port never calls).
 
 Unlike the TPU predicate there is no ``N % 128`` or ``gs % 8`` condition
 (the kernel masks ragged M, N and K edges), and a dynamic int8 spec with
@@ -28,27 +37,98 @@ which skips float (HQQ) zero points as the reference does.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from onnx_quantize_tpu_torch.core.enums import QFormat
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
 from onnx_quantize_tpu_torch.ops.kernels import (
     check_launch,
+    four_columns_fill,
     kernel_library,
     pad_to_multiple,
     ptr,
     register_kernel,
+    split_scratch,
     stream_ptr,
-    use_four_columns,
 )
+from onnx_quantize_tpu_torch.ops.kernels.matmul_q8 import CP_ASYNC_BYTES, MAX_K, MMA_K, _tiles
 from onnx_quantize_tpu_torch.ops.reference import qdq_epilogue
 
-__all__ = ["quantize_activation_int8", "w4a8_matmul", "w4a8_matmul_plain", "w4a8_operands",
-           "w4a8_dequant_matmul", "takes_int8_activations", "check_a8_operands"]
+__all__ = ["W4A8Plan", "w4a8_plan", "quantize_activation_int8", "w4a8_matmul",
+           "w4a8_matmul_plain", "w4a8_operands", "w4a8_dequant_matmul",
+           "takes_int8_activations", "check_a8_operands"]
 
 # Kernel launches since import (or since a caller reset it); counts only
-# launches of the CUDA kernel, never the plain version.
+# launches of the CUDA kernel, never the plain version. ``route_launches``
+# splits them by the route the launch plan chose.
 launches = 0
+route_launches = {"mma": 0, "simt": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class W4A8Plan:
+    """How one W4A8 call launches: ``route`` "mma" (s8 tensor cores) or
+    "simt" (``__dp4a`` on the CUDA cores); a block covers ``bm`` rows of M and
+    ``bn`` columns; ``splits`` blocks share each (bm, bn) tile along K, each
+    walking ``split_slices`` slices of 32 packed rows (mma route; 0 for
+    simt); ``blocks`` in all; ``groups`` scale groups along K_pad."""
+
+    route: str
+    bm: int
+    bn: int
+    splits: int
+    split_slices: int
+    blocks: int
+    groups: int
+
+    @property
+    def tiles(self) -> int:
+        return self.blocks // self.splits
+
+    @property
+    def scratch_elems(self) -> int:
+        """int32 elements of K-split scratch: each tile's per-group dots and
+        row sums."""
+        return self.tiles * self.groups * (self.bm * self.bn + self.bm)
+
+
+def w4a8_plan(M: int, K_pad: int, N: int, gs: int, sms: int) -> W4A8Plan:
+    """The launch plan of ``csrc/matmul_w4a8.cu`` for x_q (M, K_pad) against
+    packed (K_pad/2, N) weights with group size ``gs`` on a card of ``sms``
+    SMs.
+
+    The mma route needs N % 16 == 0 (weight rows move in 16-byte ``cp.async``
+    chunks), ``gs % 32 == 0`` (an mma slice of 32 packed rows lies inside one
+    group pair) and K_pad < 2^17 (no int32 overflow without ``.satfinite``).
+    Tiles are 32 rows by 64 columns up to M = 64 and by 128 above. While the
+    tiles number fewer than 3/8 of the SMs, K is split into ranges of whole
+    slices until they do (a split's atomics and the last block's fold cost
+    more than further blocks gain: at M = 32 the Gemma-3-270M qkv site
+    launches 72 blocks, o and down 60, gate_up 64 unsplit; none splits at
+    M = 4096). Anything else takes the simt route:
+    32- or 64-row tiles, four columns a thread where N % 4 == 0 and the wide
+    blocks still fill every SM.
+    """
+    groups = K_pad // gs
+    if N % CP_ASYNC_BYTES or gs % MMA_K or K_pad >= MAX_K:
+        return _simt_plan(M, N, sms, groups)
+    bm, bn = 32, 64 if M <= 64 else 128
+    tiles = _tiles(M, N, bm, bn)
+    slices = K_pad // 2 // MMA_K
+    per = slices
+    fill = sms * 3 // 8
+    if tiles < fill:
+        per = max(1, slices // -(-fill // tiles))
+    splits = -(-slices // per)
+    return W4A8Plan("mma", bm, bn, splits, per, tiles * splits, groups)
+
+
+def _simt_plan(M: int, N: int, sms: int, groups: int) -> W4A8Plan:
+    bm = 32 if M <= 32 else 64
+    bn = 128 if four_columns_fill(N, sms) else 32
+    return W4A8Plan("simt", bm, bn, 1, 0, _tiles(M, N, bm, bn), groups)
 
 
 def quantize_activation_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -138,13 +218,22 @@ def w4a8_matmul(x_q: torch.Tensor, sx: torch.Tensor, data: torch.Tensor, scales:
     out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
     if M == 0 or N == 0:
         return out
+    sms = torch.cuda.get_device_properties(x_q.device).multi_processor_count
+    plan = w4a8_plan(M, K_pad, N, gs, sms)
+    if plan.route == "mma" and any(t.data_ptr() % CP_ASYNC_BYTES for t in (x_q, data)):
+        plan = _simt_plan(M, N, sms, plan.groups)  # a view at an odd offset: no 16-byte copies
+    ws = counters = None
+    if plan.splits > 1:
+        ws, counters = split_scratch(x_q.device, plan)
     err = kernel_library().oqt_w4a8_matmul(
         ptr(x_q), ptr(sx), ptr(data), ptr(scales), ptr(zps), ptr(out), M, K_pad, N, gs,
-        int(signed), int(use_four_columns(N, x_q.device)), stream_ptr(x_q.device),
+        int(signed), int(plan.route == "mma"), plan.bm, plan.bn, plan.split_slices, ptr(ws),
+        ptr(counters), stream_ptr(x_q.device),
     )
     check_launch(err, "oqt_w4a8_matmul")
     global launches
     launches += 1
+    route_launches[plan.route] += 1
     return out
 
 

@@ -8,13 +8,22 @@ affine goes on each tile's partial dot (``(x . w - sum(x) * zp) * s``); the
 symmetric path, whose zero point is 0, skips the zp term.
 
 What bounds it on the card: the Gemma-3-270M lm_head (640 x 262144, int8 per
-channel) is 168 MB of weights per decode step, ~50 us at 3.35 TB/s; the
-kernel reads each byte once per call for M <= 64 rows, but its FMAs run on
-the CUDA cores, which at M = 32 cost more than the bytes. ``PERF.md`` holds
-its times beside the plain version's.
+channel) reads 168 MB of weights per decode step (M = 32, ~60 us at
+3.35 TB/s with its float32 logits); over a 2048-token scoring window its
+0.69 TFLOP of bf16 products and 2.15 GB of float32 logits take ~0.69 ms.
+bf16 x runs on the tensor cores (``mma.sync`` m16n8k16, each byte made an
+exact bf16 through the float 2^23 + b), and where the output tiles number
+fewer than the SMs K is split, the partials summed in a fixed order inside
+the same launch. float32 x, a K tile or N that is not a multiple of 16, or an
+operand off a 16-byte boundary keeps the CUDA-core kernel. :func:`w8_plan`
+chooses the route, the tile and the split; the source note in
+``csrc/matmul_w8.cu`` gives the design. ``PERF.md`` holds its times beside
+the plain version's and the yardsticks'.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -22,21 +31,116 @@ from onnx_quantize_tpu_torch.core.enums import QFormat, QuantizationStrategy
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
 from onnx_quantize_tpu_torch.ops.kernels import (
     check_launch,
+    four_columns_fill,
     kernel_library,
     pad_to_multiple,
     ptr,
     register_kernel,
+    split_scratch,
     stream_ptr,
-    use_four_columns,
 )
 from onnx_quantize_tpu_torch.ops.reference import qdq_epilogue, qdq_prologue
 
-__all__ = ["w8_matmul", "w8_dequant_matmul_plain", "w8_dequant_matmul", "w8_operands",
-           "w8_scale_rows"]
+__all__ = ["W8Plan", "w8_plan", "w8_matmul", "w8_dequant_matmul_plain", "w8_dequant_matmul",
+           "w8_operands", "w8_scale_rows"]
 
 # Kernel launches since import (or since a caller reset it); counts only
-# launches of the CUDA kernel, never the plain version.
+# launches of the CUDA kernel, never the plain version. ``route_launches``
+# splits them by the route the launch plan chose.
 launches = 0
+route_launches = {"mma": 0, "simt": 0}
+
+# K rows of a bf16 mma slice (m16n8k16): the K split's granularity, and what
+# a K tile must be a multiple of on the mma route.
+MMA_SLICE = 16
+# Bytes of one cp.async copy: the mma route stages x and weight rows in such
+# chunks, so it needs 16-byte-aligned operands and N % 16 == 0.
+CP_ASYNC_BYTES = 16
+# The x-stationary form of the mma route: 256-column output tiles, a ring of
+# three 64-row weight stages (272-byte rows) beside a resident x tile of
+# bm x (K + 8) bf16, within a block's 227 KB of shared memory.
+XS_BN = 256
+XS_RING_BYTES = 3 * 64 * (XS_BN + 16)
+SMEM_BYTES = 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class W8Plan:
+    """How one W8 call launches: ``route`` "mma" (bf16 x on the tensor cores)
+    or "simt" (float32 FMAs on the CUDA cores); a block covers ``bm`` rows of
+    M and ``bn`` columns; ``splits`` blocks share each (bm, bn) tile along K,
+    each walking ``split_slices`` slices of 16 rows (mma route; 0 for simt);
+    ``blocks`` in all."""
+
+    route: str
+    bm: int
+    bn: int
+    splits: int
+    split_slices: int
+    blocks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.blocks // self.splits
+
+    @property
+    def scratch_elems(self) -> int:
+        """4-byte elements of K-split scratch: a partial tile a block."""
+        return self.blocks * self.bm * self.bn
+
+
+def _tiles(M: int, N: int, bm: int, bn: int) -> int:
+    return -(-M // bm) * -(-N // bn)
+
+
+def w8_plan(M: int, K: int, N: int, bk: int, x_dtype: torch.dtype, sms: int) -> W8Plan:
+    """The launch plan of ``csrc/matmul_w8.cu`` for x (M, K) of ``x_dtype``
+    against (K, N) int8/uint8 weights in K tiles of ``bk`` rows on a card of
+    ``sms`` SMs.
+
+    bf16 x with ``bk % 16 == 0`` (so K too) and ``N % 16 == 0`` (the weight
+    rows move in 16-byte ``cp.async`` chunks) takes the mma route. Above
+    M = 64, a single K tile whose x tile of 128 rows (64 where K is too long)
+    by all of K fits in shared memory beside the weight ring, with at least
+    four 256-column output tiles an SM, takes the x-stationary form (``bn``
+    256: one block an SM walks a range of tiles, only the weights streaming;
+    the lm_head over a scoring window). Otherwise the tiles are 16, 32 or 64
+    rows by 128 columns; while they number fewer than the SMs, K is split
+    into ranges of whole 16-row slices, as many as fill the SMs (the lm_head
+    never splits: 2,048 tiles at M = 32). Anything else takes the simt
+    route.
+    """
+    if x_dtype == torch.bfloat16 and bk % MMA_SLICE == 0 and N % CP_ASYNC_BYTES == 0:
+        if M > 64 and bk == K:
+            bm = _x_stationary_rows(K)
+            if bm and _tiles(M, N, bm, XS_BN) >= 4 * sms:
+                return W8Plan("mma", bm, XS_BN, 1, K // MMA_SLICE, _tiles(M, N, bm, XS_BN))
+        bm, bn = (16 if M <= 16 else 32 if M <= 32 else 64), 128
+        tiles = _tiles(M, N, bm, bn)
+        slices = K // MMA_SLICE
+        per = slices
+        if tiles < sms:
+            per = max(1, slices // -(-sms // tiles))
+        splits = -(-slices // per)
+        return W8Plan("mma", bm, bn, splits, per, tiles * splits)
+    return _simt_plan(M, N, sms)
+
+
+def _x_stationary_rows(K: int) -> int:
+    """Rows of the largest resident x tile that fits beside the weight ring
+    (0 if none does)."""
+    for bm in (128, 64):
+        if XS_RING_BYTES + bm * (K + 8) * 2 <= SMEM_BYTES:
+            return bm
+    return 0
+
+
+def _simt_plan(M: int, N: int, sms: int) -> W8Plan:
+    """32- or 64-row tiles; four columns a thread only when N % 4 == 0 and the
+    wide blocks still fill every SM."""
+    bm = 32 if M <= 32 else 64
+    bn = 128 if four_columns_fill(N, sms) else 32
+    return W8Plan("simt", bm, bn, 1, 0, _tiles(M, N, bm, bn))
 
 
 def w8_dequant_matmul_plain(x2d: torch.Tensor, data: torch.Tensor, scale_rows: torch.Tensor,
@@ -96,14 +200,23 @@ def w8_matmul(x2d: torch.Tensor, data: torch.Tensor, scale_rows: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=x2d.device)
     if M == 0 or N == 0:
         return out
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    plan = w8_plan(M, K, N, bk, x2d.dtype, sms)
+    if plan.route == "mma" and any(t.data_ptr() % CP_ASYNC_BYTES for t in (x2d, data)):
+        plan = _simt_plan(M, N, sms)  # a view at an odd offset: no 16-byte copies
+    ws = counters = None
+    if plan.splits > 1:
+        ws, counters = split_scratch(x2d.device, plan)
     err = kernel_library().oqt_w8_matmul(
         ptr(x2d), int(x2d.dtype == torch.bfloat16), ptr(data), ptr(scale_rows), ptr(zp_rows),
         ptr(out), M, K, N, bk, int(data.dtype == torch.int8), int(zp_rows is None),
-        int(use_four_columns(N, x2d.device)), stream_ptr(x2d.device),
+        int(plan.route == "mma"), plan.bm, plan.bn, plan.split_slices, ptr(ws), ptr(counters),
+        stream_ptr(x2d.device),
     )
     check_launch(err, "oqt_w8_matmul")
     global launches
     launches += 1
+    route_launches[plan.route] += 1
     return out
 
 

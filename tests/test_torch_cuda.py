@@ -55,6 +55,21 @@ CASES = [
       for K, N, M in [(1024, 640, 1), (1024, 640, 16), (1024, 640, 33), (2048, 640, 64),
                       (640, 1536, 65), (640, 1536, 2048), (640, 130, 5)]),
     pytest.param(("int4", 64, True, 448, 1008, (32,)), id="w4-route-int4-g64-448x1008-M32"),
+    # W8's launch plan: the lm_head's K at decode and window M (mma, no
+    # split; x-stationary at M=2048), g32 and g128 tiles that the K split
+    # straddles, ragged M and N tile edges, the x-stationary form with a zero
+    # point (two warps along M) and at K = 1024 (64 resident rows), both with
+    # ragged M and N edges, a K tile of 130 rows (the CUDA-core route for
+    # bf16 x too).
+    *(pytest.param((dt, gs, sym, K, N, (M,)), id=f"w8-route-{dt}-g{gs}-{K}x{N}-M{M}")
+      for dt, gs, sym, K, N, M in [("int8", -1, True, 640, 16384, 32),
+                                   ("int8", -1, True, 640, 16384, 2048),
+                                   ("uint8", 32, False, 640, 1008, 70),
+                                   ("int8", 128, True, 640, 1008, 5),
+                                   ("uint8", -1, True, 640, 1008, 33),
+                                   ("uint8", -1, False, 640, 65552, 400),
+                                   ("int8", -1, True, 1024, 65552, 200),
+                                   ("uint8", -1, False, 130, 128, 4)]),
 ]
 
 
@@ -81,9 +96,10 @@ def _qtensor(dtype, group_size, symmetric, K, N, seed=0, a8=False):
 def test_kernel_matches_plain_reference(case):
     """Kernel output within 1e-4 of max|y| of the dequantize-then-matmul
     reference on the same (bf16-representable) inputs: they differ only in
-    float32 summation order. W4 takes the route its plan names (mma for bf16
-    x when gs and N are multiples of 16, else simt), and a second launch gives
-    the same bits (the K split sums its partials in a fixed order)."""
+    float32 summation order. W4 and W8 take the route their plans name (mma
+    for bf16 x when the group or K tile and N are multiples of 16, else
+    simt), and a second launch gives the same bits (the K split sums its
+    partials in a fixed order)."""
     _require_cuda()
     dtype, gs, sym, K, N, xshape = case
     qt = _qtensor(dtype, gs, sym, K, N)
@@ -93,18 +109,25 @@ def test_kernel_matches_plain_reference(case):
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(xshape + (K,)).astype(
             np.float32)).to(xdt)
         before = module.launches
+        if module is matmul_w8:
+            routes = dict(matmul_w8.route_launches)
         got = quantized_matmul(x.cuda(), qt.to("cuda"))
         torch.cuda.synchronize()
         assert module.launches == before + 1
         want = _qdq_matmul(x.float(), qt)
         assert got.shape == want.shape
         assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        assert torch.equal(quantized_matmul(x.cuda(), qt.to("cuda")), got)
+        M = x[..., :1].numel()
         if module is matmul_w4:
-            assert torch.equal(quantized_matmul(x.cuda(), qt.to("cuda")), got)
-            plan = matmul_w4.w4_plan(x[..., :1].numel(), 2 * qt.data.shape[0], N,
-                                     qt.meta.pack_group, xdt, sms)
+            plan = matmul_w4.w4_plan(M, 2 * qt.data.shape[0], N, qt.meta.pack_group, xdt, sms)
             mma = xdt == torch.bfloat16 and qt.meta.pack_group % 16 == 0 and N % 16 == 0
-            assert plan.route == ("mma" if mma else "simt")
+        else:
+            bk = matmul_w8.w8_scale_rows(qt)[0]
+            plan = matmul_w8.w8_plan(M, -(-K // bk) * bk, N, bk, xdt, sms)
+            mma = xdt == torch.bfloat16 and bk % 16 == 0 and N % 16 == 0
+            assert matmul_w8.route_launches[plan.route] == routes[plan.route] + 2
+        assert plan.route == ("mma" if mma else "simt")
 
 
 # (dtype, group_size, symmetric, K, N, x shape) of dynamic-int8 (A8) sites.
@@ -189,6 +212,53 @@ def test_w8a8_routes_bit_equal_to_plain(case):
     assert matmul_w8a8.route_launches[route] == before[route] + 2
     assert torch.equal(got, again)
     assert torch.equal(got, matmul_w8a8.w8a8_matmul_plain(*ops, **kw))
+
+
+# W4A8's launch plan, (dtype, group size, symmetric, K, N, M, route): a
+# Gemma-3-270M layer's four g128 sites at decode (K split) and at a 32x128
+# prefill, g32 and int4 g64 splits with a pad group and ragged M and N tile
+# edges, int4 without a split, then the simt route: N % 16 != 0 and a group of
+# 65 rows (channel scales over K = 130).
+W4A8_ROUTE_CASES = [
+    *(("uint4", 128, False, K, N, M, "mma") for K, N in [(640, 1536), (1024, 640),
+                                                         (640, 4096), (2048, 640)]
+      for M in (32, 4096)),
+    ("uint4", 32, False, 640, 1008, 5, "mma"),
+    ("uint4", 32, False, 640, 1008, 70, "mma"),
+    ("int4", 64, True, 448, 208, 3, "mma"),
+    ("int4", 128, True, 640, 20000, 3, "mma"),
+    ("uint4", 64, False, 320, 200, 5, "simt"),
+    ("uint4", -1, False, 130, 128, 4, "simt"),
+]
+
+
+@pytest.mark.parametrize("case", W4A8_ROUTE_CASES,
+                         ids=lambda c: f"w4a8-{c[6]}-{c[0]}-g{c[1]}-{c[3]}x{c[4]}-M{c[5]}")
+def test_w4a8_routes_bit_equal_to_plain(case):
+    """Each route of W4A8's plan equals the plain version bit for bit (exact
+    int32 group sums, then the plain version's rounded fold, pair after pair,
+    by the last block of a K split), a second launch gives the same bits, the
+    route counter names the route the plan chose, and the split's counters
+    and scratch are back at 0."""
+    _require_cuda()
+    dtype, gs, sym, K, N, M, route = case
+    qt = _qtensor(dtype, gs, sym, K, N, a8=True).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((M, K)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    ops, kw = matmul_w4a8.w4a8_operands(x, qt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = matmul_w4a8.w4a8_plan(M, ops[0].shape[1], N, kw["gs"], sms)
+    assert plan.route == route
+    before = dict(matmul_w4a8.route_launches)
+    got = matmul_w4a8.w4a8_matmul(*ops, **kw)
+    again = matmul_w4a8.w4a8_matmul(*ops, **kw)
+    torch.cuda.synchronize()
+    assert matmul_w4a8.route_launches[route] == before[route] + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, matmul_w4a8.w4a8_matmul_plain(*ops, **kw))
+    assert all(not counters.any() for _, counters in SPLIT_SCRATCH.values())
+    assert all(not parts.any() for key, (parts, _) in SPLIT_SCRATCH.items()
+               if key[2] == "W4A8Plan")
 
 
 def test_activation_quantizer_on_card_equals_cpu():
