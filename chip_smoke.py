@@ -35,8 +35,13 @@ Phases (any failed check exits non-zero; each prints its seconds):
    plain version and twice the same bits, each case's launch plan printed
    (s8 tensor-core mma with and without the K split, the CUDA-core route),
    the seven sites timed at M=32 and 4096 beside ``torch._int_mm``.
-   The fused W4 MLP at the 270M widths (M=32, 1, 256) and a ragged-K int4
-   case, timed beside the unfused W4 gate_up, GeGLU, W4 down it replaces.
+   The fused W4 MLP at the 270M widths (M=32, 1, 64, 128, 256) and a
+   ragged-K int4 case, each on its launch plan's route (bf16 on the tensor
+   cores, float32 on the CUDA cores) with the plan printed, twice the same
+   bits, the reduction's counters back at 0, one device operation a call;
+   timed in bf16 at every M of the 270M case beside the unfused W4 gate_up,
+   GeGLU, W4 down it replaces and the first port's design (the CUDA-core
+   route) in turns; ptxas' lines for its kernels printed.
    Flash
    decode at B=32, S=4096, 4 query heads on 1 KV head of 256, ragged
    positions (0, tile edges, the pos = S sentinel), window 512 and none, odd
@@ -64,9 +69,9 @@ Phases (any failed check exits non-zero; each prints its seconds):
    the int8 weight-only lm_head, fusion (which leaves every QLINEAR site
    unfused): 126 Q8 and 1 W8 launches per forward, logits and greedy tokens
    equal to the run with only Q8 plain. Then the MLP arm: the W4 tree
-   through ``mlp_megakernel=True``, 18 fused-MLP, 36 W4 and 1 W8 launches
-   per decode step (prefill at M=4096 stays on W4), prefill logits within
-   5% of the plain run.
+   through ``mlp_megakernel=True``, 18 fused-MLP (every one on the
+   tensor-core route), 36 W4 and 1 W8 launches per decode step (prefill at
+   M=4096 stays on W4), prefill logits within 5% of the plain run.
 5. Rates: decode tokens/s for the quantized arm, the same with flash decode
    (``fused_attention=True``), the W4A8 arm, the Q8 arm, the quantized arm
    with the fused MLP and an unquantized bf16 arm, by
@@ -650,10 +655,11 @@ def run_q8_checks(gen) -> dict:
 
 
 # name, K, intermediate, dtype, group size, symmetric, rows of M, timed: the
-# 270M MLP (M=256 runs the kernel past the predicate's cap at these widths),
-# and a ragged gate-up group (K=192, g64: 3 groups padded to 4) in int4.
+# 270M MLP (M=256 runs the kernel past the predicate's cap at these widths;
+# M=64 and 128 place the crossover with the unfused pair), and a ragged
+# gate-up group (K=192, g64: 3 groups padded to 4) in int4.
 MLP_CASES = [
-    ("mlp_270m", 640, 2048, "uint4", 128, False, (32, 1, 256), True),
+    ("mlp_270m", 640, 2048, "uint4", 128, False, (32, 1, 64, 128, 256), True),
     ("odd_mlp_k192_i256_g64_int4", 192, 256, "int4", 64, True, (5,), False),
 ]
 # Why: the kernel and its plain version (the unfused chain of the W4 plain
@@ -664,13 +670,33 @@ MLP_CASES = [
 MLP_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-def run_mlp_checks(gen) -> dict:
-    """The fused MLP against its plain version, timed at M=32 (bf16) beside
-    the unfused W4 gate_up, GeGLU and W4 down it replaces."""
+def ptxas_lines(log: str, kernel: str) -> list[str]:
+    """ptxas' lines (registers, spills) for the entry functions whose
+    mangled names hold ``kernel``."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("Compiling entry function" in line or "registers" in line
+                     or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def run_mlp_checks(gen, log: str) -> dict:
+    """The fused MLP against its plain version on its plan's route, each
+    case's plan printed, two launches bit-equal, the reduction's counters
+    back at 0 and one device operation a call (``torch.profiler``, M=32);
+    the 270M widths timed in bf16 at M=1, 32, 64, 128 and 256 beside the
+    unfused W4 gate_up, GeGLU and W4 down it replaces and the first port's design
+    (the simt route, which runs that kernel) on the same operands. The M=32
+    numbers go to the kernels line; ``res["by_m"]`` holds every timed M."""
     from onnx_quantize_tpu_torch.ops.kernels import mlp_w4, pad_to_multiple
     from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import w4_matmul
 
-    res = {"max_abs_err": 0.0, "library_ms": None}
+    for line in ptxas_lines(log, "mlp_w4"):
+        print(f"  ptxas mlp_w4: {line}")
+    res = {"max_abs_err": 0.0, "library_ms": None, "by_m": {}}
     for name, K, inter, dtype, gs, sym, rows, timed in MLP_CASES:
         gu = random_qtensor(K, 2 * inter, dtype, gs, sym, gen)
         dn = random_qtensor(inter, K, dtype, gs, sym, gen)
@@ -678,6 +704,9 @@ def run_mlp_checks(gen) -> dict:
             for xdt in (torch.bfloat16, torch.float32):
                 x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
                 ops, kw = mlp_w4.mlp_w4_operands(x, gu, dn)
+                plan = mlp_w4.mlp_w4_plan(M, ops[0].shape[1], inter, K, kw["gs_g"],
+                                          kw["gs_d"], xdt)
+                on_route = mlp_w4.route_launches[plan.route]
                 y = mlp_w4.mlp_w4(*ops, **kw)
                 again = mlp_w4.mlp_w4(*ops, **kw)
                 ref = mlp_w4.mlp_w4_plain(*ops, **kw)
@@ -689,10 +718,21 @@ def run_mlp_checks(gen) -> dict:
                 check(err <= MLP_REL_TOL[xdt] * scale,
                       f"{name} M={M} {xdt}: max abs err {err:.3e} > {MLP_REL_TOL[xdt]} * "
                       f"{scale:.3e}")
+                check(mlp_w4.route_launches[plan.route] == on_route + 2,
+                      f"{name} M={M}: mlp_w4 did not take its plan's {plan.route} route")
+                check(split_scratch_clear(), f"{name} M={M}: the reduction's counters not at 0")
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-                line = f"kernel mlp_w4 {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e}"
-                if timed and M == 32 and xdt == torch.bfloat16:
+                line = (f"kernel mlp_w4 {name} M={M} x={str(xdt)[6:]}: max_abs_err={err:.3e} "
+                        f"plan={plan.route} tj={plan.tj} bm={plan.bm}x{plan.passes} "
+                        f"cluster={plan.cluster} blocks={plan.blocks} "
+                        f"scratch={plan.scratch_elems} counters={plan.tiles} "
+                        f"smem={plan.smem_bytes}")
+                if timed and xdt == torch.bfloat16:
                     x2d, wg, sg, zg, wd, sd, zd = ops
+                    before_plan = mlp_w4.simt_plan(M, inter, K)
+
+                    def before():
+                        return mlp_w4.launch(*ops, **kw, plan=before_plan)
 
                     def unfused():
                         h = w4_matmul(x2d, wg, sg, zg, gs=kw["gs_g"], signed=kw["signed_g"])
@@ -701,13 +741,40 @@ def run_mlp_checks(gen) -> dict:
                         act = pad_to_multiple(act, 1, 2 * wd.shape[0]).contiguous()
                         return w4_matmul(act, wd, sd, zd, gs=kw["gs_d"], signed=kw["signed_d"])
 
-                    res["ms"] = cuda_time_ms(lambda: mlp_w4.mlp_w4(*ops, **kw), 50)
-                    res["plain_ms"] = cuda_time_ms(lambda: mlp_w4.mlp_w4_plain(*ops, **kw), 50)
-                    res["unfused_ms"] = cuda_time_ms(unfused, 50)
-                    res["bound_ms"], res["bound_by"] = bound(
+                    old = before()
+                    torch.cuda.synchronize()
+                    old_err = (old - ref).abs().max().item()
+                    check(old_err <= MLP_REL_TOL[xdt] * scale,
+                          f"{name} M={M}: the first design disagrees by {old_err:.3e}")
+                    # Kernel and first design in turns (A, B, B, A), after a warm-up
+                    # that brings the card's clocks up.
+                    t = {"ms": [], "before_ms": []}
+                    for key, fn in (("ms", lambda: mlp_w4.mlp_w4(*ops, **kw)),
+                                    ("before_ms", before), ("before_ms", before),
+                                    ("ms", lambda: mlp_w4.mlp_w4(*ops, **kw))):
+                        t[key].append(cuda_time_ms(fn, 25, warmup=20))
+                    r = {"ms": sum(t["ms"]) / 2, "before_ms": sum(t["before_ms"]) / 2,
+                         "plain_ms": cuda_time_ms(lambda: mlp_w4.mlp_w4_plain(*ops, **kw), 50),
+                         "unfused_ms": cuda_time_ms(unfused, 50)}
+                    r["bound_ms"], r["bound_by"] = bound(
                         nbytes(*ops, y), 2 * M * K * 2 * inter + 2 * M * inter * K, "bf16")
-                    line += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-                             f"unfused_w4_pair_ms={res['unfused_ms']:.4f}")
+                    res["by_m"][M] = r
+                    if M == 32:
+                        # One device operation a call on either route: no memset.
+                        for route, fn in (("mma", lambda: mlp_w4.mlp_w4(*ops, **kw)),
+                                          ("simt", before)):
+                            n_ops, names = count_launches(fn)
+                            check(n_ops == 1, f"{name}: one fused-MLP call on the {route} route "
+                                              f"launched {n_ops} device operations: {names}")
+                        line += " device_ops_per_call=1"
+                        res.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "unfused_ms", "before_ms")})
+                    line += (f" kernel_ms={r['ms']:.4f} ({t['ms'][0]:.4f}, {t['ms'][1]:.4f}) "
+                             f"before_first_design_ms={r['before_ms']:.4f} "
+                             f"({t['before_ms'][0]:.4f}, {t['before_ms'][1]:.4f}) "
+                             f"unfused_w4_pair_ms={r['unfused_ms']:.4f} "
+                             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                             f"({r['bound_by']}) before_err={old_err:.3e}")
                 print(line, flush=True)
     return res
 
@@ -1172,10 +1239,10 @@ def reset_counts() -> None:
 
 
 # The kernels whose wrappers count their launches by route.
-ROUTED = ("flash_attention", "w8", "w4a8", "w8a8")
+ROUTED = ("flash_attention", "w8", "w4a8", "w8a8", "mlp_w4")
 
 
-def check_on_mma(label: str, names=("w8", "w4a8", "w8a8")) -> None:
+def check_on_mma(label: str, names=("w8", "w4a8", "w8a8", "mlp_w4")) -> None:
     """Every launch of the ``names`` kernels since the last reset took the
     tensor-core route."""
     for name in names:
@@ -1202,6 +1269,7 @@ def count_launches(fn) -> tuple[int, list[str]]:
 # Kernel names (the mma routes' kernels, W8's x-stationary form among them).
 MATMUL_KERNEL_NAME = re.compile(r"\b(w4a8|w8a8|w4|w8|q8|mlp_w4)(_mma(_xs)?)?_kernel\b")
 Q8_KERNEL_NAME = re.compile(r"\bq8(_mma)?_kernel\b")
+MLP_KERNEL_NAME = re.compile(r"\bmlp_w4(_mma)?_kernel\b")
 W4_KERNEL_NAME = re.compile(r"\bw4(_mma)?_kernel\b")
 W8_KERNEL_NAME = re.compile(r"\bw8(_mma(_xs)?)?_kernel\b")
 
@@ -1212,7 +1280,7 @@ def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
     launched, device busy ms (their summed durations; one stream), wall ms
     (profiled, so longer than unprofiled), the idle share 1 - busy/wall, and
     the busy ms of the quantized-matmul kernels (the fused MLP among them),
-    of the Q8 kernels alone, and of everything else."""
+    of the Q8 kernels alone, of the fused MLP alone, and of everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     from onnx_quantize_tpu_torch.engine import InferenceEngine
@@ -1235,9 +1303,10 @@ def profile_decode(model, params, steps: int = 4, mega: bool = False) -> dict:
     matmul = sum(e.time_range.elapsed_us() for e in events
                  if MATMUL_KERNEL_NAME.search(e.name)) / 1e3
     q8 = sum(e.time_range.elapsed_us() for e in events if Q8_KERNEL_NAME.search(e.name)) / 1e3
+    mlp = sum(e.time_range.elapsed_us() for e in events if MLP_KERNEL_NAME.search(e.name)) / 1e3
     wall_ms = 1e3 * wall
     return {"launches": len(events) / steps, "busy_ms": busy / steps,
-            "matmul_ms": matmul / steps, "q8_ms": q8 / steps,
+            "matmul_ms": matmul / steps, "q8_ms": q8 / steps, "mlp_ms": mlp / steps,
             "other_ms": (busy - matmul) / steps,
             "wall_ms": wall_ms / steps, "idle_share": 1.0 - busy / wall_ms}
 
@@ -1492,7 +1561,12 @@ def main() -> int:
                       f"({r['bound_by']}), plain {r['plain_ms']:.4f}, _int_mm "
                       f"{r['library_ms']:.4f}" for M, r in ((32, q8), (4096, q8["m4096"]))),
           flush=True)
-    kernel_results["mlp_w4"] = run_mlp_checks(gen)
+    kernel_results["mlp_w4"] = mlp = run_mlp_checks(gen, log)
+    print(f"fused MLP, one layer at the 270M widths (bf16 x, L2 cold) on {card}: "
+          + "; ".join(f"M={M} kernel {r['ms']:.4f} ms, the first design {r['before_ms']:.4f}, "
+                      f"unfused W4 pair {r['unfused_ms']:.4f}, bound {r['bound_ms']:.5f} "
+                      f"({r['bound_by']}), plain {r['plain_ms']:.4f}"
+                      for M, r in sorted(mlp["by_m"].items())), flush=True)
     phase_done("3 kernels")
 
     # Phase 4: the main path: W4, A8, Q8 and MLP arms.
@@ -1597,7 +1671,7 @@ def main() -> int:
         print(f"decode step profile, {arm} (B=32, int8 KV, torch.profiler, mean of 4 steps) on "
               f"{card}: launches {prof['launches']:.0f}, device busy {prof['busy_ms']:.3f} ms "
               f"(quantized matmul kernels {prof['matmul_ms']:.3f}, Q8 among them "
-              f"{prof['q8_ms']:.3f}, other "
+              f"{prof['q8_ms']:.3f}, the fused MLP among them {prof['mlp_ms']:.3f}, other "
               f"{prof['other_ms']:.3f}), wall {prof['wall_ms']:.3f} ms, idle share "
               f"{prof['idle_share']:.3f}", flush=True)
     prof = profile_window(model, qparams)

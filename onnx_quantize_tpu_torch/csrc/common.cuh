@@ -6,10 +6,10 @@
 // adjacent columns and RPT rows of M, strided by 8 so that a warp's reads of
 // the staged activations all hit the same shared-memory word (a broadcast).
 // Activations are staged through shared memory, RC rows of K at a time. The
-// tensor-core routes of W4, W8, W4A8, W8A8, Q8 and flash attention pick
-// their own tiles (their launch plans) and share the cp.async, ldmatrix and
-// mma helpers at the end of this file; Q8, W8A8 and W4A8 also share the s8
-// mma core there.
+// tensor-core routes of W4, W8, W4A8, W8A8, Q8, the fused MLP and flash
+// attention pick their own tiles (their launch plans) and share the cp.async,
+// ldmatrix and mma helpers at the end of this file; W4 and the fused MLP share
+// the nibble-to-bf16 operand builder, and Q8, W8A8 and W4A8 the s8 mma core.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -147,6 +147,19 @@ __device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t 
 }
 
 constexpr uint32_t kBf16x2Ones = 0x3F803F80u;  // bf16x2 (1, 1)
+
+// Byte j of the words a (row k) and b (row k + 1) of a column, as two bf16x2
+// registers (row k in the low half): the low nibbles and the high nibbles,
+// each exact. nib_bits is 0x43004300 (uint4) or 0x43084308 (int4: nib ^ 8);
+// neg_off is bf16x2 (-128, -128) or (-136, -136). The W4 and fused-MLP mma
+// routes build their B operands with it.
+__device__ __forceinline__ void nibble_pairs(uint32_t a, uint32_t b, uint32_t sel,
+                                             uint32_t nib_bits, uint32_t neg_off, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t p = __byte_perm(a, b, sel);  // a.j a.j b.j b.j
+  lo = bf16x2_fma((p & 0x000F000Fu) ^ nib_bits, kBf16x2Ones, neg_off);
+  hi = bf16x2_fma(((p >> 12) & 0x000F000Fu) ^ nib_bits, kBf16x2Ones, neg_off);
+}
 
 // ---- the s8 tensor-core core of the Q8 and W8A8 mma routes --------------------
 //

@@ -219,21 +219,9 @@ using oqt::cp_async_wait;
 using oqt::ldmatrix_x4;
 using oqt::mma_bf16;
 
-using oqt::bf16x2_fma;
+using oqt::nibble_pairs;
 
 constexpr uint32_t kOnes = oqt::kBf16x2Ones;
-
-// Byte j of the words a (row k) and b (row k + 1) of a column, as two bf16x2
-// registers (row k in the low half): the low nibbles and the high nibbles,
-// each exact. nib_bits is 0x43004300 (uint4) or 0x43084308 (int4: nib ^ 8);
-// neg_off is bf16x2 (-128, -128) or (-136, -136).
-__device__ __forceinline__ void nibble_pairs(uint32_t a, uint32_t b, uint32_t sel,
-                                             uint32_t nib_bits, uint32_t neg_off, uint32_t& lo,
-                                             uint32_t& hi) {
-  const uint32_t p = __byte_perm(a, b, sel);  // a.j a.j b.j b.j
-  lo = bf16x2_fma((p & 0x000F000Fu) ^ nib_bits, kOnes, neg_off);
-  hi = bf16x2_fma(((p >> 12) & 0x000F000Fu) ^ nib_bits, kOnes, neg_off);
-}
 
 // Stage s of the block's K range [c_begin, c_end) (in slices) into ring slot
 // s % kStages: weight rows and the x columns of both nibble halves.

@@ -65,7 +65,8 @@ def quantized_matmul(x: torch.Tensor, qt: QTensor, bias=None) -> torch.Tensor:
         return kernel(x, qt, bias)
     if x.device.type != "cpu":
         raise NotImplementedError(
-            f"No Hopper kernel covers the quantized weight {qt.meta}; "
-            "see ROADMAP.md, Queue B, for the kernels still to be ported."
+            f"No Hopper kernel covers the quantized weight {qt.meta}: the kernels take QDQ "
+            "weights packed in 4 bits or stored in 8, and QLINEAR sites with calibrated "
+            "input and output scales; other weight formats run only on the CPU reference."
         )
     return quantized_matmul_ref(x, qt, bias)

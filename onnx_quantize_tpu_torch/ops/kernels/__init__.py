@@ -143,7 +143,8 @@ def kernel_library() -> ctypes.CDLL:
         lib.oqt_q8_matmul.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                                       i, i, i, i, p, p, p]
         lib.oqt_q8_matmul.restype = i
-        lib.oqt_mlp_w4.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.oqt_mlp_w4.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                   i, i, i, p]
         lib.oqt_mlp_w4.restype = i
         _LIBRARY = lib
     return _LIBRARY
@@ -170,13 +171,14 @@ def four_columns_fill(N: int, sms: int) -> bool:
     return N % 4 == 0 and -(-N // 128) >= sms
 
 
-# Scratch of the K split of the tensor-core kernels (W4, W8, Q8, W4A8), per
-# (device, stream, plan type, tiles, splits, scratch size): the partials
-# (4-byte elements: float32 tiles for W4 and W8, int32 tiles for Q8, int32
-# per-group dots and row sums for W4A8) and one counter a tile, made zeroed
-# once. Each kernel leaves every counter at 0 when it ends (W4A8 its partials
-# too, which it adds into). Launches that share an entry run in the order of
-# their one stream (or of a graph replayed on it).
+# Scratch of the K split of the tensor-core kernels (W4, W8, Q8, W4A8) and of
+# the fused MLP's reduction, per (device, stream, plan type, tiles, splits,
+# scratch size): the partials (4-byte elements: float32 tiles for W4, W8 and
+# the fused MLP, int32 tiles for Q8, int32 per-group dots and row sums for
+# W4A8) and one counter a tile, made zeroed once. Each kernel leaves every
+# counter at 0 when it ends (W4A8 its partials too, which it adds into).
+# Launches that share an entry run in the order of their one stream (or of a
+# graph replayed on it).
 SPLIT_SCRATCH: dict = {}
 
 

@@ -617,38 +617,51 @@ def test_q8_kernel_bit_equal_to_plain_and_oracle(case):
         assert torch.equal(got.cpu(), _qlinear_matmul(x, qt, bias))
 
 
-# (K, intermediate, group size, dtype, M, x dtype): the 270M MLP at decode,
-# one row, M = 256 (two passes of 32 rows beyond the predicate's cap here),
-# and a ragged gate-up group with signed nibbles.
+# (K, intermediate, group size, dtype, M, x dtype, route): the 270M MLP at
+# decode, one row, M = 256 (eight passes of 32 rows, beyond the predicate's
+# cap here), a ragged gate-up group with signed nibbles, 12 blocks in three
+# clusters of 4, and 3 blocks in clusters of one (x by plain bulk copies;
+# g16: one slice a pair, a K step a down group). bfloat16 takes the
+# tensor-core route, float32 the CUDA-core one.
 MLP_CASES = [
-    (640, 2048, 128, "uint4", 32, torch.bfloat16),
-    (640, 2048, 128, "uint4", 1, torch.float32),
-    (640, 2048, 128, "uint4", 256, torch.bfloat16),
-    (192, 256, 64, "int4", 5, torch.float32),
+    (640, 2048, 128, "uint4", 32, torch.bfloat16, "mma"),
+    (640, 2048, 128, "uint4", 1, torch.float32, "simt"),
+    (640, 2048, 128, "uint4", 256, torch.bfloat16, "mma"),
+    (192, 256, 64, "int4", 5, torch.float32, "simt"),
+    (640, 2048, 128, "uint4", 1, torch.bfloat16, "mma"),
+    (192, 256, 64, "int4", 5, torch.bfloat16, "mma"),
+    (128, 192, 64, "uint4", 4, torch.bfloat16, "mma"),
+    (64, 48, 16, "int4", 3, torch.bfloat16, "mma"),
 ]
 
 
 @pytest.mark.parametrize("case", MLP_CASES,
                          ids=lambda c: f"K{c[0]}-I{c[1]}-g{c[2]}-{c[3]}-M{c[4]}-{str(c[5])[6:]}")
 def test_mlp_w4_kernel_matches_plain(case):
-    """The fused MLP against its plain version on the card: float32 within
-    1e-4 of max|y| (summation order); bfloat16 within 1e-2 (act rounds to
-    bf16 between the products, where an input one ulp apart can round the
-    other way). Two launches give the same bits (the reduction is
-    deterministic)."""
+    """The fused MLP against its plain version on the card, on the route its
+    plan names: float32 within 1e-4 of max|y| (summation order); bfloat16
+    within 1e-2 (act rounds to bf16 between the products, where an input one
+    ulp apart can round the other way). Two launches give the same bits (the
+    reduction is deterministic), and the reduction's counters are back at 0
+    after each launch (a graph replay starts clean)."""
     _require_cuda()
-    K, inter, gs, dtype, M, xdt = case
+    K, inter, gs, dtype, M, xdt, route = case
     gu = _qtensor(dtype, gs, dtype == "int4", K, 2 * inter, seed=2)
     dn = _qtensor(dtype, gs, dtype == "int4", inter, K, seed=3)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((M, K)).astype(
         np.float32)).to("cuda", xdt)
     ops, kw = mlp_w4.mlp_w4_operands(x, gu.to("cuda"), dn.to("cuda"))
+    plan = mlp_w4.mlp_w4_plan(M, ops[0].shape[1], inter, K, kw["gs_g"], kw["gs_d"], xdt)
+    assert plan.route == route
     before = mlp_w4.launches
+    on_route = mlp_w4.route_launches[route]
     got = mlp_w4.mlp_w4(*ops, **kw)
     again = mlp_w4.mlp_w4(*ops, **kw)
     torch.cuda.synchronize()
     assert mlp_w4.launches == before + 2
+    assert mlp_w4.route_launches[route] == on_route + 2
     assert torch.equal(got, again)
+    assert all(not counters.any() for _, counters in SPLIT_SCRATCH.values())
     want = mlp_w4.mlp_w4_plain(*ops, **kw)
     tol = 1e-4 if xdt == torch.float32 else 1e-2
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()

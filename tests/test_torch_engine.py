@@ -163,6 +163,35 @@ def test_sampling_respects_top_k_and_generator():
     assert torch.equal(draws, again)
 
 
+@pytest.mark.parametrize("top_k", [0, 50], ids=["top_p", "top_k_then_top_p"])
+def test_top_p_mass_below_cutoff_keeps_jax_set(top_k, monkeypatch):
+    """A row whose float32 cumulative mass ends below top_p (V = 32000 logits
+    of N(0, 0.1^2): the sorted mass ends at 0.99999988 < 0.99999994). The
+    port samples an index in range where its gather once raised, and keeps
+    exactly the logits the JAX sampler's masking keeps, with and without
+    top-k's -inf."""
+    from onnx_quantize_tpu.engine import sampling as jax_sampling
+    from onnx_quantize_tpu_torch.engine.sampling import _masked_logits
+
+    row = np.random.default_rng(1).normal(0, 0.1, (1, 32000)).astype(np.float32)
+    params = SamplingParams(1.0, top_k, 0.99999994)
+    token = sample(torch.from_numpy(row), torch.Generator().manual_seed(0), params)
+    assert token.shape == (1,) and 0 <= int(token[0]) < row.shape[1]
+    kept = {}
+
+    def capture(key, logits, axis=-1):
+        kept["jax"] = np.asarray(logits)
+        return jax.numpy.zeros(logits.shape[:-1], jax.numpy.int32)
+
+    monkeypatch.setattr(jax_sampling.jax.random, "categorical", capture)
+    jax_sampling.sample(jax.numpy.asarray(row), jax.random.key(0),
+                        jax_sampling.SamplingParams(1.0, top_k, 0.99999994))
+    got = _masked_logits(torch.from_numpy(row), params).numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(kept["jax"]))
+    np.testing.assert_array_equal(got[np.isfinite(got)], kept["jax"][np.isfinite(got)])
+    assert np.isfinite(got).sum() == (top_k or row.shape[1])
+
+
 def test_decode_multi_eos_freezes_like_jax(setup, served):
     _, _, _, _, ids = setup
     jeng, teng = served["jeng"], served["teng"]
