@@ -16,7 +16,8 @@ Phases (any failed check exits non-zero; each prints its seconds):
    step, M=32, and a 32x128 prefill, M=4096) and at odd shapes (ragged M and
    N, a pad group, signed and unsigned weights, uint8 shifted by 128, group
    tiles, a tile past 1024 rows), in bfloat16 and float32, and the lm_head
-   at a scoring window's M=2048. W4 also at M = 1, 16, 33, 64, 65 and 2048
+   at a scoring window's M=2048, and W4 with HQQ's float zero points at the
+   qkv and down shapes (M=32 and 2048) and a ragged one. W4 also at M = 1, 16, 33, 64, 65 and 2048
    (every route of its launch plan: tensor-core mma with and without the K
    split, the CUDA-core route), timed at M=32 and 2048; W8 on the lm_head
    also at a scoring window's M=2048, and on its mma route with a K split at
@@ -72,6 +73,21 @@ Phases (any failed check exits non-zero; each prints its seconds):
    through ``mlp_megakernel=True``, 18 fused-MLP (every one on the
    tensor-core route), 36 W4 and 1 W8 launches per decode step (prefill at
    M=4096 stays on W4), prefill logits within 5% of the plain run.
+4b. Quantizer algorithms: the same bf16 model quantized on the card (the Q8
+   arm's 8x128 calibration ids) by RTN, GPTQ, AWQ and HQQ (uint4 g128) and
+   SmoothQuant (the Q8 arm's QLINEAR config), each algorithm's seconds
+   printed apart from its calibration forwards, and the mean per-site
+   relative output error on the calibration inputs held to RTN's (GPTQ and
+   AWQ no worse, HQQ within 10%). Layer 0 quantized again by the port on the
+   CPU from the card's weights and captured inputs: equal codes for RTN, HQQ
+   and SmoothQuant, 95% for GPTQ, 99% for AWQ. One site's activations
+   through the percentile and entropy calibrators on the card and the CPU:
+   equal counts and ranges. Each tree, with the int8 lm_head, through phase
+   4's sequence: GPTQ converted to W4A8 (72 W4A8 + 1 W8A8 a forward, equal to
+   the plain run), AWQ (126 W4 + 1 W8: its prescales keep every site
+   unfused), HQQ (72 W4 + 1 W8, float zero points), SmoothQuant (126 Q8 + 1
+   W8, equal to the run with Q8 plain); then the window NLL of each beside
+   the bf16 and RTN models'.
 5. Rates: decode tokens/s for the quantized arm, the same with flash decode
    (``fused_attention=True``), the W4A8 arm, the Q8 arm, the quantized arm
    with the fused MLP and an unquantized bf16 arm, by
@@ -171,10 +187,11 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 # -- phase 3: kernels against their plain versions -----------------------------
 
 def random_qtensor(K: int, N: int, dtype: str, group_size: int, symmetric: bool, gen,
-                   a8: bool = False):
+                   a8: bool = False, hqq: bool = False):
     """An RTN-quantized random (K, N) weight on the card (``a8``: with dynamic
-    int8 activations), scales baked as the engine bakes them."""
-    from onnx_quantize_tpu_torch.algorithms import rtn_quantize
+    int8 activations; ``hqq``: HQQ-quantized, with float zero points), scales
+    baked as the engine bakes them."""
+    from onnx_quantize_tpu_torch.algorithms import hqq_quantize, rtn_quantize
     from onnx_quantize_tpu_torch.core.qconfig import QWeightArgs
     from onnx_quantize_tpu_torch.engine import prepare_kernel_scales
     from onnx_quantize_tpu_torch.nn.qtensor import make_qtensor
@@ -184,7 +201,10 @@ def random_qtensor(K: int, N: int, dtype: str, group_size: int, symmetric: bool,
     args = QWeightArgs(dtype=dtype, group_size=group_size, symmetric=symmetric)
     gs = resolve_group_size(K, group_size) or -1
     w = 0.1 * torch.randn((K, N), generator=gen, device="cuda")
-    q, s, z = rtn_quantize(w, args.dtype, args.strategy, gs, symmetric, False)
+    if hqq:
+        q, s, z = hqq_quantize(w, args.dtype, gs)
+    else:
+        q, s, z = rtn_quantize(w, args.dtype, args.strategy, gs, symmetric, False)
     tree = {"w": make_qtensor(q, s, z, quant_type=args.dtype, strategy=args.strategy,
                               group_size=gs, symmetric=symmetric, reduce_range=False)}
     return prepare_kernel_scales(convert_to_w4a8(tree) if a8 else tree)["w"]
@@ -287,6 +307,12 @@ KERNEL_CASES = [
     ("odd_w4_i4_k448_g64_n1008", "w4", 448, 1008, "int4", 64, True, (3, 40), False),
     ("odd_w4_u4_n130", "w4", 640, 130, "uint4", 128, False, (5, 33), False),
     ("odd_w4_u4_channel_k130", "w4", 130, 128, "uint4", -1, False, (4,), False),
+    # HQQ's float zero points (not integers, so never folded as one) at the
+    # 270M body's shapes, a decode step and a scoring window, and at a pad
+    # group with a ragged N edge.
+    ("hqq_qkv", "w4", 640, 1536, "uint4", 128, False, (32, 2048), False),
+    ("hqq_down", "w4", 2048, 640, "uint4", 128, False, (32, 2048), False),
+    ("hqq_odd_k320_g64_n200", "w4", 320, 200, "uint4", 64, False, (5, 37), False),
     ("odd_w8_i8_n40004", "w8", 640, 40004, "int8", -1, True, (5, 33), False),
     ("odd_w8_u8_asym_n1000", "w8", 640, 1000, "uint8", -1, False, (7, 65), False),
     ("odd_w8_u8_g128", "w8", 640, 999, "uint8", 128, False, (31,), False),
@@ -411,7 +437,10 @@ def run_kernel_checks(gen) -> dict:
     big_a8 = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
               for k in ("w8a8", "w4a8")}
     for name, kernel, K, N, dtype, gs, sym, rows, timed in KERNEL_CASES:
-        qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"))
+        qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"),
+                            hqq=name.startswith("hqq_"))
+        check(qt.meta.float_zero_point == name.startswith("hqq_"),
+              f"{name}: float zero points not recorded as such")
         module = kernel_modules()[kernel]
         for M in rows:
             for xdt in (torch.bfloat16, torch.float32):
@@ -1030,8 +1059,8 @@ def build_models():
     """The Gemma-3-270M bf16 model from a seeded init, and its W4 tree (W4 g128
     body, int8 per-channel lm_head, fused), float tree (fused) and Q8 tree
     (QLINEAR body calibrated on the card, int8 weight-only lm_head, fused:
-    the QLINEAR sites stay unfused). Returns (model, W4, float, Q8 trees,
-    calibration and quantization seconds)."""
+    the QLINEAR sites stay unfused). Returns (model, its unfused float params,
+    the W4, float and Q8 trees, calibration and quantization seconds)."""
     import onnx_quantize_tpu_torch as oqt
     from onnx_quantize_tpu_torch.models.gemma3 import (
         GEMMA3_270M,
@@ -1059,7 +1088,7 @@ def build_models():
           and all(e.input_scale.device.type == "cuda" for e in plan),
           "Q8 calibration: a site without calibrated qparams on the card")
     q8params, _ = oqt.quantize(model, q8params, head)
-    return (model, fuse_gemma3_projections(qparams), fuse_gemma3_projections(params),
+    return (model, params, fuse_gemma3_projections(qparams), fuse_gemma3_projections(params),
             fuse_gemma3_projections(q8params), q8_s)
 
 
@@ -1170,6 +1199,236 @@ def run_main_path(model, qparams, label: str, prefill_want: dict, step_want: dic
     check(not exact or agree == 1.0, f"{label} greedy tokens differ from the plain run's")
     check_on_mma(label)
     return total, logits
+
+
+# -- phase 4b: quantizer algorithms ----------------------------------------------
+
+# Why these thresholds (set before the first run; PERF.md section 6):
+# on one layer's sites the card and the CPU run the same algorithm on the same
+# weights and captured inputs. RTN, HQQ and SmoothQuant take their divisions
+# by device scalars and their powers and sums in float64, so their codes must
+# be equal. GPTQ's Hessian and Cholesky factors and AWQ's losses are float32
+# matmuls that each device's library sums in its own order; a code flipped at a
+# rounding tie feeds GPTQ's error forward, and a near-tie between two of AWQ's
+# grid ratios would change a whole site: GPTQ must keep 95% of the codes
+# equal, AWQ 99%.
+CPU_CODE_SHARE = {"RTN": 1.0, "HQQ": 1.0, "SmoothQuant": 1.0, "GPTQ": 0.95, "AWQ": 0.99}
+# The JAX package's accuracy pins' relations (tests/integration/
+# test_pinned_accuracy.py:57-90): GPTQ and AWQ no worse than RTN at the same
+# bit width, HQQ within 10% of it, on the mean per-site relative output error.
+ERROR_RELATION = {"GPTQ": 1.0, "AWQ": 1.0, "HQQ": 1.1}
+
+
+def site_inputs(model, params, calib) -> dict:
+    """Every site's input taps of the float model over the calibration ids
+    (float32, (samples, T, K)): what the algorithms' first calibration sees."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.calibration import collect_activations
+    from onnx_quantize_tpu_torch.plan import build_plan
+
+    plan = build_plan(model.linear_sites(), oqt.QConfig(weights=oqt.QWeightArgs(),
+                                                        ignore=["lm_head"]))
+    cp = oqt.CalibrationParams()
+    batches = collect_activations(model, params, plan, calib, cp.num_samples, cp.batch_size,
+                                  None, tap_inputs=True, tap_outputs=False)
+    return {e.name: torch.cat([b[e.name]["input"].float() for b in batches]) for e in plan}
+
+
+def mean_site_error(model, params, qparams, inputs) -> float:
+    """Mean over the body's sites of ||X W - (X prescale) dq(Wq)|| / ||X W||
+    on the float model's calibration inputs X."""
+    from onnx_quantize_tpu_torch.ops.reference import dequantize_weight
+    from onnx_quantize_tpu_torch.utils import tree_get
+
+    errs = []
+    for site in model.linear_sites():
+        if site.name not in inputs:
+            continue
+        x = inputs[site.name].reshape(-1, site.in_features)
+        qsite = tree_get(qparams, site.param_path)
+        want = x @ tree_get(params, site.param_path)["w"].float()
+        xs = x * qsite["prescale"] if "prescale" in qsite else x
+        got = xs @ dequantize_weight(qsite["w"])
+        errs.append(((want - got).norm() / want.norm()).item())
+    return float(np.mean(errs))
+
+
+def timed_quantize(model, params, qconfig):
+    """(tree, plan, calibration seconds, algorithm seconds) of ``quantize``:
+    the calibration forwards timed apart from the rest."""
+    import onnx_quantize_tpu_torch as oqt
+    import onnx_quantize_tpu_torch.prepasses as prepasses
+
+    calibrate, spent = prepasses.calibrate_model, []
+
+    def timed_calibrate(*args):
+        _, secs = timed(lambda: calibrate(*args))
+        spent.append(secs)
+
+    prepasses.calibrate_model = timed_calibrate
+    try:
+        (tree, plan), total = timed(lambda: oqt.quantize(model, params, qconfig))
+    finally:
+        prepasses.calibrate_model = calibrate
+    return tree, plan, sum(spent), total - sum(spent)
+
+
+def layer_codes_on_cpu(name: str, model, params, trees: dict, inputs: dict, layer: int = 0):
+    """Share of layer ``layer``'s codes that the port computes alike on the
+    CPU, from the card's weights and captured inputs, for arm ``name``."""
+    from onnx_quantize_tpu_torch.algorithms import gptq_quantize, hqq_quantize, rtn_quantize
+    from onnx_quantize_tpu_torch.core.dtypes import QuantType
+    from onnx_quantize_tpu_torch.core.enums import QuantizationStrategy
+    from onnx_quantize_tpu_torch.core.qconfig import QWeightArgs
+    from onnx_quantize_tpu_torch.ops.reference import unpack_weight
+    from onnx_quantize_tpu_torch.prepasses.awq import AwqPass
+    from onnx_quantize_tpu_torch.utils import tree_get
+
+    group = QuantizationStrategy.GROUP
+    equal = total = 0
+    for site in model.linear_sites():
+        if not site.name.startswith(f"layers.{layer}."):
+            continue
+        w = tree_get(params, site.param_path)["w"].float().cpu()
+        x = inputs[site.name].cpu()
+        if name == "RTN":
+            q, _, _ = rtn_quantize(w, QuantType.QUInt4, group, 128, False, False)
+        elif name == "HQQ":
+            q, _, _ = hqq_quantize(w, QuantType.QUInt4, 128)
+        elif name == "GPTQ":
+            q, _, _ = gptq_quantize(w, x, QuantType.QUInt4, group, 128)
+        elif name == "AWQ":
+            scales, losses = AwqPass(False).scale_grid(
+                w, x, QWeightArgs(dtype="uint4", group_size=128))
+            w = scales[torch.argmin(losses)].reshape(-1, 1) * w
+            q, _, _ = rtn_quantize(w, QuantType.QUInt4, group, 128, False, False)
+        else:  # SmoothQuant, then int8 per-channel symmetric RTN
+            act = torch.clamp(x.reshape(-1, site.in_features).abs().amax(dim=0), min=1e-5)
+            from onnx_quantize_tpu_torch.core.numerics import pow_f32
+
+            s = pow_f32(act, 0.5) / pow_f32(w.abs().amax(dim=1) + 1e-9, 0.5)
+            q, _, _ = rtn_quantize(s.reshape(-1, 1) * w, QuantType.QInt8,
+                                   QuantizationStrategy.CHANNEL, -1, True, False)
+        card = unpack_weight(tree_get(trees[name], site.param_path)["w"]).cpu()
+        equal += int((card == q).sum())
+        total += q.numel()
+    return equal / total
+
+
+def check_calibrators_on_cpu(inputs: dict, card: str) -> None:
+    """One site's tapped activations through the percentile and entropy
+    calibrators on the card and on the CPU, a sequence at a time (so the
+    histograms grow and are rebuilt): equal counts and ranges."""
+    from onnx_quantize_tpu_torch.calibration import EntropyCalibrator, PercentileCalibrator
+
+    x = inputs["layers.3.mlp.down_proj"]
+    for cls in (PercentileCalibrator, EntropyCalibrator):
+        on_card, on_cpu = cls(), cls()
+        for i in range(x.shape[0]):
+            on_card.collect("a", x[i] * (1 + i))
+            on_cpu.collect("a", (x[i] * (1 + i)).cpu())
+        counts_equal = torch.equal(on_card.counts("a").cpu(), on_cpu.counts("a"))
+        card_range = [t.item() for t in on_card.compute_range("a")]
+        cpu_range = [t.item() for t in on_cpu.compute_range("a")]
+        print(f"{cls.__name__} on layers.3.mlp.down_proj's input ({x.shape[0]} batches, "
+              f"{int(on_card.counts('a').sum())} values) on {card} vs the CPU: counts equal "
+              f"{counts_equal}, range {card_range} vs {cpu_range}", flush=True)
+        check(on_card.counts("a").device.type == "cuda", f"{cls.__name__} counted on the host")
+        check(counts_equal and card_range == cpu_range,
+              f"{cls.__name__}: the card's histogram or range differs from the CPU's")
+
+
+def run_quantizer_algorithms(model, params, qparams, fparams, card) -> dict:
+    """GPTQ W4A8, AWQ, HQQ and SmoothQuant Q8 trees of the bf16 model,
+    quantized on the card, each through its kernels (launch counts, plain
+    run), its per-site error beside RTN's, a window NLL, and one layer's
+    codes against the CPU's. Returns the arms' launches."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.models.gemma3 import fuse_gemma3_projections
+    from onnx_quantize_tpu_torch.ops import convert_to_w4a8
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_q8
+    from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
+
+    cfg = model.cfg
+    layers = cfg.num_layers
+    calib = np.random.default_rng(7).integers(1, cfg.vocab_size, size=(8, 128)).astype(np.int32)
+    inputs = site_inputs(model, params, calib)
+    head = oqt.QConfig(weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+                       ignore=[r"^layers\."])
+    w4 = dict(dtype="uint4", group_size=128)
+    static = oqt.QActivationArgs(dtype="uint8", is_static=True)
+    configs = {
+        "RTN": oqt.QConfig(weights=oqt.QWeightArgs(**w4), ignore=["lm_head"]),
+        "GPTQ": oqt.QConfig(weights=oqt.QWeightArgs(**w4, algorithm=oqt.GPTQConfig()),
+                            ignore=["lm_head"], calibration_data=calib),
+        "AWQ": oqt.QConfig(weights=oqt.QWeightArgs(**w4), preprocessors=[oqt.AwqConfig()],
+                           ignore=["lm_head"], calibration_data=calib),
+        "HQQ": oqt.QConfig(weights=oqt.QWeightArgs(dtype="uint4", strategy="group",
+                                                   group_size=128, algorithm=oqt.HqqConfig()),
+                           ignore=["lm_head"]),
+        "RTN int8": oqt.QConfig(weights=oqt.QWeightArgs(dtype="int8", group_size=-1,
+                                                        symmetric=True), ignore=["lm_head"]),
+        "SmoothQuant": oqt.QConfig(
+            weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+            input_activations=static, output_activations=static, format="qlinear",
+            preprocessors=[oqt.SmoothQuantConfig(alpha=0.5)], calibration_data=calib,
+            ignore=["lm_head"]),
+    }
+    trees, errors = {}, {}
+    for name, qc in configs.items():
+        tree, plan, calib_s, algo_s = timed_quantize(model, params, qc)
+        check(len(plan) == 7 * layers and all(e.captured_input is None for e in plan),
+              f"{name}: the plan lost a site or kept its captured inputs")
+        trees[name] = tree
+        errors[name] = mean_site_error(model, params, tree, inputs)
+        print(f"quantizer {name} (Gemma-3-270M bf16, 126 body sites) on {card}: calibration "
+              f"{calib_s:.2f} s, algorithm {algo_s:.2f} s; mean per-site relative output "
+              f"error on the calibration inputs {errors[name]:.6f}", flush=True)
+    for name, rel in ERROR_RELATION.items():
+        print(f"per-site error {name} {errors[name]:.6f} vs RTN uint4 g128 {errors['RTN']:.6f} "
+              f"(ratio {errors[name] / errors['RTN']:.4f}, must be <= {rel})", flush=True)
+        check(errors[name] <= rel * errors["RTN"],
+              f"{name}'s per-site error exceeds {rel} x RTN's")
+    print(f"per-site error SmoothQuant W8 {errors['SmoothQuant']:.6f} vs RTN int8 channel "
+          f"{errors['RTN int8']:.6f} (not gated)", flush=True)
+
+    for name in ("RTN", "HQQ", "SmoothQuant", "GPTQ", "AWQ"):
+        share, secs = timed(lambda: layer_codes_on_cpu(name, model, params, trees, inputs))
+        print(f"layer 0 codes, {name} on {card} vs the port on the CPU: {share:.6f} equal "
+              f"(threshold {CPU_CODE_SHARE[name]}, CPU {secs:.1f} s)", flush=True)
+        check(share >= CPU_CODE_SHARE[name], f"{name}: the card's layer-0 codes differ from "
+                                             "the CPU's")
+    check_calibrators_on_cpu(inputs, card)
+
+    def serve(name):
+        return fuse_gemma3_projections(oqt.quantize(model, trees[name], head)[0])
+
+    launches = {}
+    a8 = convert_to_w4a8(serve("GPTQ"))
+    counts = {"w4a8": 4 * layers, "w8a8": 1}
+    launches["GPTQ"], _ = run_main_path(model, a8, "GPTQ W4A8 body, W8A8 head", counts, counts,
+                                        exact=True)
+    arms = {"GPTQ": a8}
+    for name, counts in (("AWQ", {"w4": 7 * layers, "w8": 1}),
+                         ("HQQ", {"w4": 4 * layers, "w8": 1})):
+        arms[name] = serve(name)
+        launches[name], _ = run_main_path(model, arms[name], f"{name} W4 body, W8 head", counts,
+                                          counts)
+    arms["SmoothQuant"] = serve("SmoothQuant")
+    counts = {"q8": 7 * layers, "w8": 1}
+    launches["SmoothQuant"], _ = run_main_path(model, arms["SmoothQuant"],
+                                               "SmoothQuant Q8 body, W8 head", counts, counts,
+                                               exact=True, plain_only=[matmul_q8])
+
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 4096)
+    nll = {}
+    for name, tree in (("bf16", fparams), ("RTN", qparams), *arms.items()):
+        ppl, secs = timed(lambda: perplexity_from_tokens(model, tree, tokens, 2048, 512))
+        check(math.isfinite(ppl), f"{name} window ppl {ppl} is not finite")
+        nll[name] = math.log(ppl)
+    print(f"window scoring mean NLL (4096 tokens, window 2048, stride 512) on {card}: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in nll.items()), flush=True)
+    return launches
 
 
 # -- phase 5: decode rates -------------------------------------------------------
@@ -1573,7 +1832,7 @@ def main() -> int:
     from onnx_quantize_tpu_torch.ops import convert_to_w4a8
     from onnx_quantize_tpu_torch.ops.kernels import matmul_q8
 
-    model, qparams, fparams, q8params, q8_s = build_models()
+    model, params, qparams, fparams, q8params, q8_s = build_models()
     print(f"Q8 tree: calibration (8x128 ids, on the card) and QLINEAR quantization of 126 "
           f"sites in {q8_s:.2f} s", flush=True)
     layers = model.cfg.num_layers
@@ -1605,6 +1864,14 @@ def main() -> int:
     launches["q8"] = q8_launches["q8"]
     launches["mlp_w4"] = mlp_launches["mlp_w4"]
     phase_done("4 main path")
+
+    # Phase 4b: the quantizer algorithms on the card, each tree served.
+    for counts in run_quantizer_algorithms(model, params, qparams, fparams, card).values():
+        for key, n in counts.items():
+            if n:
+                launches[key] += n
+    del params
+    phase_done("4b quantizer algorithms")
 
     # Phase 5: rates.
     # The loop is host-bound and the host is shared, so the arms take turns

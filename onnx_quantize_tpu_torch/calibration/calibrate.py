@@ -9,11 +9,14 @@ that records each target site's input and output, on the device named by
     integer inputs drawn in [0, 100) as conservative token ids),
   * mini-batching with the excess samples dropped,
   * multi-input models require dict data,
-  * static input/output qparams per plan entry from the calibrator.
+  * static input/output qparams per plan entry from the calibrator
+    (minmax, percentile or entropy),
+  * each site's raw inputs concatenated over the batches, for GPTQ, AWQ and
+    SmoothQuant (``PlanEntry.captured_input``, float32 on the calibration
+    device).
 
 Unlike the reference, a requested device that is absent raises: there is no
-CPU fallback. Capturing raw site inputs (for GPTQ, AWQ and SmoothQuant)
-waits with those algorithms (ROADMAP.md, Queue A item 10).
+CPU fallback.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from onnx_quantize_tpu_torch.calibration.base import Calibrator
 from onnx_quantize_tpu_torch.calibration.factory import get_calibrator
 from onnx_quantize_tpu_torch.core.numerics import compute_qparams
-from onnx_quantize_tpu_torch.core.qconfig import QActivationArgs, QConfig
+from onnx_quantize_tpu_torch.core.qconfig import CalibrationMethod, QActivationArgs, QConfig
 from onnx_quantize_tpu_torch.nn.module import Context, InputSpec, Module
 from onnx_quantize_tpu_torch.plan import QuantPlan
 from onnx_quantize_tpu_torch.utils import tree_map
@@ -173,25 +176,50 @@ def _set_entry_qparams(
         setattr(entry, f"{kind}_zero_point", zp)
 
 
+def _capture_raw_inputs(plan: QuantPlan,
+                        activations: list[dict[str, dict[str, torch.Tensor]]]) -> None:
+    """Each site's input taps concatenated over the batches (float32): what
+    GPTQ, AWQ and SmoothQuant read."""
+    collected: dict[str, list[torch.Tensor]] = {}
+    for batch in activations:
+        for site_name, taps in batch.items():
+            if "input" in taps:
+                collected.setdefault(site_name, []).append(taps["input"].to(torch.float32))
+    for entry in plan:
+        if entry.name in collected:
+            entry.captured_input = torch.cat(collected[entry.name], dim=0)
+
+
 def calibrate_model(model: Module, params, plan: QuantPlan, qconfig: QConfig) -> None:
-    """Calibrate: fill the plan entries' static activation qparams."""
+    """Calibrate: fill the plan entries' static activation qparams and, where
+    the weight algorithm or a pre-pass reads them, their captured inputs."""
     calibrate_inputs = (
         qconfig.input_activations is not None and qconfig.input_activations.is_static
     )
     calibrate_outputs = (
         qconfig.output_activations is not None and qconfig.output_activations.is_static
     )
-    if not (calibrate_inputs or calibrate_outputs):
+    preprocessing_needs_inputs = any(pre.requires_calibration for pre in qconfig.preprocessors)
+    algorithm_needs_inputs = (
+        qconfig.weights is not None and qconfig.weights.algorithm.requires_calibration
+    )
+    tap_inputs = calibrate_inputs or algorithm_needs_inputs or preprocessing_needs_inputs
+    if not (tap_inputs or calibrate_outputs):
         return
 
     cp = qconfig.calibration_params
     activations = collect_activations(
         model, params, plan, qconfig.calibration_data,
         num_samples=cp.num_samples, batch_size=cp.batch_size, backend=cp.backend,
-        tap_inputs=calibrate_inputs, tap_outputs=calibrate_outputs,
+        tap_inputs=tap_inputs, tap_outputs=calibrate_outputs,
     )
-    calibrator = get_calibrator(cp.method, momentum=cp.momentum)
+    if cp.method == CalibrationMethod.PERCENTILE:
+        calibrator = get_calibrator(cp.method, percentile=cp.percentile, momentum=cp.momentum)
+    else:
+        calibrator = get_calibrator(cp.method, momentum=cp.momentum)
     if calibrate_inputs:
         _set_entry_qparams(plan, activations, calibrator, qconfig.input_activations, "input")
     if calibrate_outputs:
         _set_entry_qparams(plan, activations, calibrator, qconfig.output_activations, "output")
+    if algorithm_needs_inputs or preprocessing_needs_inputs:
+        _capture_raw_inputs(plan, activations)

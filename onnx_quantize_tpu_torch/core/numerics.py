@@ -11,10 +11,16 @@ rules, so codes, scales and zero points come out bit-equal:
     s -> 1, ``zp = round(clip(qmin - rmin / s, qmin, qmax))`` (clip before
     round),
   * symmetric: mid-range zero point and ``min(pos, neg)`` usable levels, so
-    unsigned symmetric works (zp = 128 for uint8).
+    unsigned symmetric works (zp = 128 for uint8),
+  * MSE range search: shrink grid ``p = 1 - i/grid`` for ``maxshrink*grid``
+    steps, Lp-norm error (norm 2.4), early stop once ``patience``
+    non-improving steps have been counted (cumulatively, as the reference).
 
-Everything runs in float32. The MSE range search is not ported yet
-(ROADMAP.md, Queue A item 1).
+Everything runs in float32 on the array's device, with no host sync. Two
+rules keep a CUDA result equal to the CPU one: a division by a constant
+divides by a device tensor (CUDA turns ``tensor / python_number`` into a
+multiply by the reciprocal, a last-bit change), and a reduction whose
+order the device picks sums in float64 (``sum_f64``).
 """
 
 from __future__ import annotations
@@ -31,9 +37,38 @@ __all__ = [
     "compute_qparams",
     "quantize_from_qparams",
     "dequantize",
+    "fake_quantize",
+    "compute_min_max_mse",
+    "compute_qparams_from_array",
+    "true_div",
+    "sum_f64",
+    "pow_f32",
 ]
 
 _F32_TINY = torch.finfo(torch.float32).tiny
+_F32_MAX = torch.finfo(torch.float32).max
+
+
+def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded as one IEEE division on every device (``b`` as a
+    device scalar, not a Python number)."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
+def pow_f32(a: torch.Tensor, exponent: float) -> torch.Tensor:
+    """``a ** exponent`` for a float32 tensor: the exponent rounded to float32
+    (as numpy and JAX read a Python float in a float32 expression), the power
+    taken in float64 and rounded to float32, so every device's math library
+    gives the same float32 result."""
+    e = float(torch.tensor(exponent, dtype=torch.float32))
+    return a.to(torch.float64).pow(e).to(torch.float32)
+
+
+def sum_f64(a: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """Sum in float64, so the float32 terms' order on the device moves the
+    result only below float64's last bits."""
+    a = a.to(torch.float64)
+    return a.sum() if dim is None else a.sum(dim=dim, keepdim=keepdim)
 
 
 def _resolved_group_size(in_channels: int, group_size: int | None) -> int:
@@ -135,14 +170,74 @@ def compute_qparams(rmin, rmax, quant_type: QuantType, is_symmetric: bool,
         # (uint8 symmetric: zp=128, 127 positive vs 128 negative levels); use the
         # smaller side so quantization cannot overflow.
         max_levels = min(qmax - zero, zero - qmin)
-        scale = rabs / max_levels
+        scale = true_div(rabs, max_levels)
         scale = torch.where(scale < _F32_TINY, torch.ones_like(scale), scale)
         zp = torch.full(rabs.shape, zero, dtype=zp_dtype, device=rabs.device)
         return scale, zp
 
     qmin, qmax = quant_type.qrange(is_symmetric=False, reduce_range=reduce_range)
-    scale = (rmax - rmin) / (qmax - qmin)
+    scale = true_div(rmax - rmin, qmax - qmin)
     scale = torch.where(scale < _F32_TINY, torch.ones_like(scale), scale)
     zp = qmin - rmin / scale
     zp = torch.round(torch.clamp(zp, qmin, qmax))
     return scale, zp.to(zp_dtype)
+
+
+def fake_quantize(array: torch.Tensor, scale, zero_point, quant_type: QuantType,
+                  is_symmetric: bool, reduce_range: bool) -> torch.Tensor:
+    """Quantize then dequantize (float32)."""
+    q = quantize_from_qparams(array, scale, zero_point, quant_type, is_symmetric, reduce_range)
+    return dequantize(q, scale, zero_point)
+
+
+def compute_min_max_mse(array: torch.Tensor, quant_type: QuantType, strategy,
+                        group_size: int, is_symmetric: bool, reduce_range: bool,
+                        maxshrink: float = 0.20, patience: int = 5, grid: float = 100.0,
+                        norm: float = 2.4):
+    """MSE-optimal range per row (or for the tensor) over a shrink grid.
+
+    Candidate ``i`` scales the min/max range by ``float32(1 - i/grid)`` and
+    scores the fake-quantized rows by ``sum |q - x|^norm``; a row keeps the
+    first strictly better candidate. The reference stops the search once
+    ``patience`` candidates improved no row, counting them cumulatively;
+    here every candidate runs and a counter on the device masks the updates
+    after that point, which gives the same result with no host sync. The
+    error sums in float64, so its order on the device does not decide ties.
+    """
+    array = array.to(torch.float32)
+    rmin, rmax = compute_min_max(array, strategy, group_size, clip_ratio=1.0)
+    dim = None if strategy == QuantizationStrategy.TENSOR else 1
+    best_err = torch.full(rmin.shape, _F32_MAX, dtype=torch.float64, device=array.device)
+    best_min, best_max = rmin.clone(), rmax.clone()
+    no_improve = torch.zeros((), dtype=torch.int32, device=array.device)
+    for i in range(int(maxshrink * grid)):
+        p = torch.tensor(1.0 - i / grid, dtype=torch.float32, device=array.device)
+        shrunk_min, shrunk_max = p * rmin, p * rmax
+        scale, zp = compute_qparams(shrunk_min, shrunk_max, quant_type, is_symmetric,
+                                    reduce_range, zp_dtype=torch.float32)
+        q = fake_quantize(array, scale, zp, quant_type, is_symmetric, reduce_range)
+        norm32 = float(torch.tensor(norm, dtype=torch.float32))
+        err = sum_f64((q - array).abs().to(torch.float64).pow(norm32), dim=dim,
+                      keepdim=dim is not None)
+        improved = err < best_err
+        active = no_improve < patience
+        take = improved & active
+        best_err = torch.where(take, err, best_err)
+        best_min = torch.where(take, shrunk_min, best_min)
+        best_max = torch.where(take, shrunk_max, best_max)
+        no_improve = no_improve + (active & ~improved.any()).to(torch.int32)
+    return best_min, best_max
+
+
+def compute_qparams_from_array(array: torch.Tensor, quant_type: QuantType, strategy,
+                               group_size: int, is_symmetric: bool, reduce_range: bool,
+                               clip_ratio: float = 1.0, mse: bool = False,
+                               zp_dtype: torch.dtype | None = None):
+    """Qparams straight from a (layout-preprocessed) tensor; ``mse`` replaces
+    the clipped min/max by the shrink-grid search (and ignores clip_ratio)."""
+    if mse:
+        rmin, rmax = compute_min_max_mse(array, quant_type, strategy, group_size,
+                                         is_symmetric, reduce_range)
+    else:
+        rmin, rmax = compute_min_max(array, strategy, group_size, clip_ratio)
+    return compute_qparams(rmin, rmax, quant_type, is_symmetric, reduce_range, zp_dtype)

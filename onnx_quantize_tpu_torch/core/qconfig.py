@@ -1,4 +1,5 @@
-"""Declarative quantization configuration: RTN, activations, calibration.
+"""Declarative quantization configuration: weights and their algorithm,
+activations, calibration, pre-passes.
 
 Counterpart of ``onnx_quantize_tpu/core/qconfig.py`` as plain dataclasses: the
 machine the port runs on has no pydantic. The weight rules are the same
@@ -6,8 +7,14 @@ machine the port runs on has no pydantic. The weight rules are the same
 > 0 -> group), and so are the activation rules, the calibration knobs and
 the config-level checks that tie weights, activations and the QLINEAR format
 together. ``CalibrationParams.backend`` names a torch device where the
-reference names a JAX platform. Anything beyond RTN with minmax calibration
-raises ``NotImplementedError`` naming the ROADMAP.md entry that will port it.
+reference names a JAX platform.
+
+The weight algorithms (RTN, GPTQ, HQQ) and the pre-passes (SmoothQuant, AWQ)
+are config dataclasses here, as in the reference; each dispatches to its
+module (``algorithms/``, ``prepasses/``) when it runs. A config given as a
+dict picks its class by its ``algorithm_type`` or ``preprocessing_type`` tag.
+QuaRot (``RotateConfig``) raises ``NotImplementedError`` naming the ROADMAP.md
+entry that will port it.
 """
 
 from __future__ import annotations
@@ -15,20 +22,24 @@ from __future__ import annotations
 import dataclasses
 import enum
 from collections.abc import Sequence
-from typing import Any
+from typing import TYPE_CHECKING, Any, ClassVar
 
 import torch
 
 from onnx_quantize_tpu_torch.core.dtypes import QuantType
 from onnx_quantize_tpu_torch.core.enums import QFormat, QuantizationStrategy
 
+if TYPE_CHECKING:
+    from onnx_quantize_tpu_torch.plan import PlanEntry
+
 __all__ = ["QConfig", "QWeightArgs", "QActivationArgs", "CalibrationParams",
-           "CalibrationMethod"]
+           "CalibrationMethod", "AlgorithmConfig", "RTNConfig", "GPTQConfig", "HqqConfig",
+           "PreProcessingConfig", "SmoothQuantConfig", "AwqConfig", "RotateConfig"]
 
-_REST_OF_QUANTIZER = "ROADMAP.md, Queue A item 10 (rest of the quantizer)"
+_QUAROT = "ROADMAP.md, Queue A item 10.4 (QuaRot)"
 
 
-def _not_ported(what: str, entry: str = _REST_OF_QUANTIZER) -> NotImplementedError:
+def _not_ported(what: str, entry: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet; see {entry}.")
 
 
@@ -128,11 +139,123 @@ class CalibrationParams:
         object.__setattr__(self, "backend", _parse_backend(self.backend))
 
 
+class AlgorithmConfig:
+    """Base of the weight algorithms: ``quantize_weights`` returns
+    ``(q_weight, scale, zero_point)`` for a float32 ``(in_features,
+    out_features)`` weight, on the weight's device."""
+
+    # Whether the algorithm needs the sites' input activations captured.
+    requires_calibration: ClassVar[bool] = False
+    algorithm_type: ClassVar[str]
+
+    def validate_weight_args(self, weight_args: "QWeightArgs") -> None:
+        """Hook for algorithm-specific constraints on the enclosing QWeightArgs."""
+
+    def quantize_weights(self, weight: torch.Tensor, qconfig: "QConfig",
+                         entry: "PlanEntry | None" = None):
+        raise NotImplementedError(f"{type(self).__name__} must implement quantize_weights().")
+
+
+@dataclasses.dataclass(frozen=True)
+class RTNConfig(AlgorithmConfig):
+    """Round-to-nearest: no parameters beyond QWeightArgs."""
+
+    algorithm_type: ClassVar[str] = "rtn"
+
+    def quantize_weights(self, weight, qconfig, entry=None):
+        from onnx_quantize_tpu_torch.algorithms.rtn import quantize_weights
+
+        return quantize_weights(self, weight, qconfig, entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTQConfig(AlgorithmConfig):
+    """GPTQ: block_size is the lazy-batch block width of the error-corrected
+    sweep, percdamp the Hessian dampening as a fraction of mean(diag(H)),
+    actorder quantizes columns in decreasing diag(H) order."""
+
+    requires_calibration: ClassVar[bool] = True
+    algorithm_type: ClassVar[str] = "gptq"
+    block_size: int = 128
+    percdamp: float = 0.01
+    actorder: bool = False
+
+    def quantize_weights(self, weight, qconfig, entry=None):
+        from onnx_quantize_tpu_torch.algorithms.gptq import quantize_weights
+
+        return quantize_weights(self, weight, qconfig, entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class HqqConfig(AlgorithmConfig):
+    """HQQ: half-quadratic zero-point optimisation (lp-norm ``lp_norm``,
+    beta, kappa, ``iters`` iterations, optional early stop). Only uint4,
+    asymmetric, group strategy, group size a power of two >= 16; the zero
+    point stays in float32."""
+
+    algorithm_type: ClassVar[str] = "hqq"
+    lp_norm: float = 0.7
+    beta: float = 1e1
+    kappa: float = 1.01
+    iters: int = 20
+    early_stop: bool = True
+
+    def validate_weight_args(self, weight_args: "QWeightArgs") -> None:
+        if weight_args.dtype != QuantType.QUInt4:
+            raise ValueError(f"HQQ only supports uint4 weight type. Found: {weight_args.dtype}")
+        if weight_args.symmetric:
+            raise ValueError("HQQ only supports asymmetric quantization.")
+        if weight_args.strategy != QuantizationStrategy.GROUP:
+            raise ValueError(
+                f"HQQ only supports 'group' quantization strategy. Found: {weight_args.strategy}"
+            )
+        gs = weight_args.group_size
+        if gs != -1 and (gs < 16 or (gs & (gs - 1)) != 0):
+            raise ValueError(
+                "HQQ requires group_size to be greater than 16 and a power of 2. "
+                f"Found: {gs}"
+            )
+        # HQQ keeps the zero point in float, in the scale's dtype.
+        object.__setattr__(weight_args, "zp_dtype", torch.float32)
+
+    def quantize_weights(self, weight, qconfig, entry=None):
+        from onnx_quantize_tpu_torch.algorithms.hqq import quantize_weights
+
+        return quantize_weights(self, weight, qconfig, entry)
+
+
+_ALGORITHMS: dict[str, type[AlgorithmConfig]] = {
+    cls.algorithm_type: cls for cls in (RTNConfig, GPTQConfig, HqqConfig)}
+
+
+def _resolve_algorithm(value) -> AlgorithmConfig:
+    """None (RTN), a config, its tag, or a dict with its ``algorithm_type``."""
+    if value is None:
+        return RTNConfig()
+    if isinstance(value, AlgorithmConfig):
+        return value
+    if isinstance(value, str):
+        value = {"algorithm_type": value.lower()}
+    if isinstance(value, dict):
+        kwargs = dict(value)
+        tag = kwargs.pop("algorithm_type", None)
+        if tag not in _ALGORITHMS:
+            raise ValueError(f"Unknown algorithm_type {tag!r}. Registered: {sorted(_ALGORITHMS)}")
+        return _ALGORITHMS[tag](**kwargs)
+    raise TypeError(f"algorithm must be an AlgorithmConfig, a tag or a dict, got {type(value)}")
+
+
 @dataclasses.dataclass(frozen=True)
 class QWeightArgs:
     """Weight quantization parameters.
 
-    ``algorithm`` accepts only "rtn" and ``mse`` only False for now.
+    ``algorithm`` is an :class:`AlgorithmConfig` (RTN by default), its tag or
+    a dict; ``clip_ratio`` in (0, 1] scales the min/max range; ``mse`` runs
+    the shrink-grid range search (``core.numerics.compute_min_max_mse``).
+    ``zp_dtype`` is derived: the container dtype, float32 under HQQ. As in
+    the reference, the algorithm's constraints are checked before the
+    strategy is inferred from ``group_size`` (HQQ needs ``strategy="group"``
+    spelled out).
     """
 
     dtype: QuantType | str = QuantType.QInt8
@@ -140,18 +263,26 @@ class QWeightArgs:
     group_size: int | None = None
     strategy: QuantizationStrategy | str | None = None
     reduce_range: bool = False
-    algorithm: str = "rtn"
+    clip_ratio: float = 1.0
     mse: bool = False
+    algorithm: AlgorithmConfig | str | dict | None = None
+    zp_dtype: torch.dtype | None = dataclasses.field(default=None, init=False)
 
     def __post_init__(self):
-        dtype = _parse_dtype(self.dtype)
-        strategy = _resolve_strategy(self.group_size, _parse_strategy(self.strategy))
-        if self.algorithm.lower() != "rtn":
-            raise _not_ported(f"Weight algorithm {self.algorithm!r}")
-        if self.mse:
-            raise _not_ported("The MSE range search", "ROADMAP.md, Queue A item 1")
-        object.__setattr__(self, "dtype", dtype)
-        object.__setattr__(self, "strategy", strategy)
+        if not 0.0 < self.clip_ratio <= 1.0:
+            raise ValueError(f"clip_ratio must be in (0.0, 1.0], got {self.clip_ratio}")
+        if self.group_size is not None and self.group_size < -1:
+            raise ValueError(
+                f"Invalid group size {self.group_size}. Use group_size > 0 for "
+                "strategy='group' and group_size = -1 for 'channel'"
+            )
+        object.__setattr__(self, "dtype", _parse_dtype(self.dtype))
+        object.__setattr__(self, "strategy", _parse_strategy(self.strategy))
+        object.__setattr__(self, "algorithm", _resolve_algorithm(self.algorithm))
+        self.algorithm.validate_weight_args(self)
+        object.__setattr__(self, "strategy", _resolve_strategy(self.group_size, self.strategy))
+        if self.zp_dtype is None:
+            object.__setattr__(self, "zp_dtype", self.dtype.container_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +316,81 @@ class QActivationArgs:
         object.__setattr__(self, "strategy", _resolve_strategy(self.group_size, strategy))
 
 
+class PreProcessingConfig:
+    """Base of the pre-passes (SmoothQuant, AWQ): ``build_pass`` returns a
+    callable ``pass_(model, params, plan, qconfig)`` that rewrites the site
+    weights, adds their input ``prescale`` and updates the plan in place."""
+
+    requires_calibration: ClassVar[bool] = True
+    requires_post_calibration: ClassVar[bool] = True
+    preprocessing_type: ClassVar[str]
+
+    def build_pass(self, qconfig: "QConfig"):
+        raise NotImplementedError(f"{type(self).__name__} must implement build_pass().")
+
+
+@dataclasses.dataclass(frozen=True)
+class SmoothQuantConfig(PreProcessingConfig):
+    """SmoothQuant: alpha sets how much activation range moves into the weights."""
+
+    preprocessing_type: ClassVar[str] = "smooth_quant"
+    alpha: float = 0.5
+
+    def build_pass(self, qconfig: "QConfig"):
+        from onnx_quantize_tpu_torch.prepasses.smooth_quant import SmoothQuantPass
+
+        return SmoothQuantPass(alpha=self.alpha)
+
+
+@dataclasses.dataclass(frozen=True)
+class AwqConfig(PreProcessingConfig):
+    """AWQ: the activation-aware scale search; ``clip_search`` adds the
+    per-site clip-ratio sweep."""
+
+    preprocessing_type: ClassVar[str] = "awq"
+    clip_search: bool = False
+
+    def build_pass(self, qconfig: "QConfig"):
+        from onnx_quantize_tpu_torch.prepasses.awq import AwqPass
+
+        return AwqPass(clip_search=self.clip_search)
+
+
+@dataclasses.dataclass(frozen=True)
+class RotateConfig(PreProcessingConfig):
+    """QuaRot's rotation pre-pass, with the reference's fields. Not ported:
+    building one raises."""
+
+    preprocessing_type: ClassVar[str] = "rotate"
+    requires_calibration: ClassVar[bool] = False
+    mode: str = "hadamard"
+    seed: int = 0
+    rotate_qk: bool = False
+    rotate_v: bool = False
+    rotate_down: bool = False
+    online_block: int = 128
+
+    def __post_init__(self):
+        raise _not_ported("QuaRot (RotateConfig)", _QUAROT)
+
+
+_PREPASSES: dict[str, type[PreProcessingConfig]] = {
+    cls.preprocessing_type: cls for cls in (SmoothQuantConfig, AwqConfig, RotateConfig)}
+
+
+def _resolve_prepass(value) -> PreProcessingConfig:
+    if isinstance(value, PreProcessingConfig):
+        return value
+    if isinstance(value, dict):
+        kwargs = dict(value)
+        tag = kwargs.pop("preprocessing_type", None)
+        if tag not in _PREPASSES:
+            raise ValueError(f"Unknown preprocessing_type {tag!r}. Registered: "
+                             f"{sorted(_PREPASSES)}")
+        return _PREPASSES[tag](**kwargs)
+    raise TypeError(f"preprocessors take PreProcessingConfig or dict items, got {type(value)}")
+
+
 @dataclasses.dataclass(frozen=True)
 class QConfig:
     """Top-level quantization spec.
@@ -202,8 +408,9 @@ class QConfig:
             ``CalibrationParams`` or its keyword dict) and the model inputs
             (an array for the model's one input, or a dict of input name to
             array); with no data, random data from the model's input specs.
-        preprocessors: accepted so that a config written for the JAX package
-            fails loudly; any pre-pass raises ``NotImplementedError``.
+        preprocessors: pre-passes run in order before the weights are
+            quantized (``SmoothQuantConfig``, ``AwqConfig``, or their dicts);
+            ``RotateConfig`` (QuaRot) raises ``NotImplementedError``.
     """
 
     weights: QWeightArgs | None = None
@@ -236,11 +443,8 @@ class QConfig:
         if isinstance(self.calibration_params, dict):
             object.__setattr__(self, "calibration_params",
                                CalibrationParams(**self.calibration_params))
-        if self.preprocessors:
-            raise _not_ported("Pre-passes (SmoothQuant, AWQ, QuaRot)")
-        cp = self.calibration_params
-        if cp is not None and cp.method != CalibrationMethod.MINMAX:
-            raise _not_ported(f"The {cp.method.value} calibrator")
+        object.__setattr__(self, "preprocessors",
+                           tuple(_resolve_prepass(p) for p in self.preprocessors or ()))
         self._check_activations()
 
     def _check_activations(self) -> None:

@@ -5,7 +5,8 @@ whose leaves are arrays, or QTensors read by attribute) and returns the same
 tree over torch tensors, so both packages can run on the same weights. It
 needs no JAX import: array leaves go through ``numpy.asarray``, a QTensor is
 recognised by its ``data``/``scale``/``zero_point``/``meta`` attributes (its
-static activation qparams cross with it) and a QBias by
+static activation qparams cross with it; float zero points, as HQQ's, set
+``QTensorMeta.float_zero_point``) and a QBias by
 ``data``/``scale``/``zero_point``/``quant_type``. The tree lands on the CUDA
 device unless the caller names another.
 """
@@ -50,6 +51,7 @@ def _qtensor_to_torch(leaf, device) -> QTensor:
         symmetric=m.symmetric, reduce_range=m.reduce_range, shape=tuple(m.shape),
         format=m.format, packed=m.packed, pack_group=m.pack_group,
         input_quant=_act_spec(m.input_quant), output_quant=_act_spec(m.output_quant),
+        float_zero_point=bool(np.issubdtype(np.asarray(leaf.zero_point).dtype, np.floating)),
     )
 
     def optional(a):

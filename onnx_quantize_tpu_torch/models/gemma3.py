@@ -14,10 +14,11 @@ Over an int8/int4 KV cache it is the scale-folded attend that never
 materializes a dequantized cache, or, for the engine's one-token steps with
 ``fused_attention``, the int8 flash-decode kernel. With the engine's
 ``mlp_megakernel``, a decode-sized MLP over packed W4 weights runs the fused
-MLP kernel (``ops/kernels/mlp_w4.py``). A forward given a ``Context`` records
-the calibration taps of the unfused sites. Tensor, context and expert
-parallelism, MoE and the QuaRot rotations are not ported yet (ROADMAP.md,
-Queue A items 11 and 14).
+MLP kernel (``ops/kernels/mlp_w4.py``), unless ``down_proj`` carries an input
+prescale (AWQ, SmoothQuant), which the kernel has no hook for. A forward
+given a ``Context`` records the calibration taps of the unfused sites.
+Tensor, context and expert parallelism and MoE are not ported yet
+(ROADMAP.md, Queue A items 11 and 14), nor the QuaRot rotations (item 10.4).
 """
 
 from __future__ import annotations
@@ -199,7 +200,9 @@ class Gemma3MLP(Module):
         if "_fused_gate_up" in params:
             w = params["_fused_gate_up"]["w"]
             dn = params["down_proj"].get("w")
-            if self.use_megakernel and isinstance(w, QTensor) and isinstance(dn, QTensor):
+            # The fused kernel has no hook for down_proj's input prescale.
+            if (self.use_megakernel and isinstance(w, QTensor) and isinstance(dn, QTensor)
+                    and "prescale" not in params["down_proj"]):
                 M = int(np.prod(x.shape[:-1]))
                 if mlp_w4.mlp_w4_eligible(w, dn, M):
                     return mlp_w4.mlp_w4_fused(x, w, dn).to(x.dtype)

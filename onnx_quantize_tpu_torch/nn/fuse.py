@@ -3,7 +3,8 @@
 Counterpart of ``onnx_quantize_tpu/nn/fuse.py``: packed data, scales and zero
 points concatenate along N (same K, same group geometry), so one fused
 matmul computes exactly the concatenation of the per-site outputs with fewer
-launches. Applied after quantization.
+launches. Sites with a bias or a per-site input prescale (AWQ, SmoothQuant)
+stay apart. Applied after quantization.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ def _same(a, b) -> bool:
 
 
 def can_fuse(site_params: list[dict]) -> bool:
-    """All sites quantized alike (or all float), no bias."""
-    if any(p.get("b") is not None for p in site_params):
+    """All sites quantized alike (or all float), no bias, no per-site prescale."""
+    if any(p.get("b") is not None or p.get("prescale") is not None for p in site_params):
         return False
     leaves = [p.get("w") for p in site_params]
     if all(isinstance(w, QTensor) for w in leaves):

@@ -13,8 +13,9 @@ keys), and quantizable sites are named by their dotted path
 (``layers.0.attn.q_proj``).
 
 Calibration taps: a forward given a :class:`Context` whose ``taps`` dict is
-set records each target site's input and output under its site name, as the
-JAX package's taps do.
+set records each target site's input (after its ``prescale``, the input the
+quantized weight sees) and output under its site name, as the JAX package's
+taps do.
 """
 
 from __future__ import annotations
@@ -138,26 +139,38 @@ class Linear(Module):
         ))
 
     def forward(self, params: dict, x: torch.Tensor, ctx: Context | None = None) -> torch.Tensor:
-        if ctx is not None:
-            ctx.collect(self.site_name, "input", x)
-        y = apply_linear(params, x)
-        if ctx is not None:
-            ctx.collect(self.site_name, "output", y)
-        return y
+        return apply_linear(params, x, ctx, self.site_name)
 
 
-def apply_linear(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Linear-site semantics on a site dict: float32 accumulation, then the
-    result is cast back to the stream dtype (a bf16 residual stream stays
-    bf16 through every site)."""
+def apply_linear(params: dict, x: torch.Tensor, ctx: Context | None = None,
+                 name: str | None = None) -> torch.Tensor:
+    """Linear-site semantics on a site dict: the input ``prescale`` (the
+    folded SmoothQuant/AWQ scale), float32 accumulation, then the result cast
+    back to the stream dtype (a bf16 residual stream stays bf16 through every
+    site). With a ``ctx``, the calibration taps record the site's input after
+    the prescale, and its output, under ``name``."""
     from onnx_quantize_tpu_torch.ops import quantized_matmul
 
+    # The stream dtype is read before the prescale multiply: a float32
+    # prescale promotes a bf16 stream, and the cast back keeps it bf16.
+    in_dtype = x.dtype
+    prescale = params.get("prescale")
+    if prescale is not None:
+        x = (x * prescale).to(in_dtype)
+    if ctx is not None:
+        ctx.collect(name, "input", x)
     w = params["w"]
     b = params.get("b")
     if isinstance(w, QTensor):
         y = quantized_matmul(x, w, b)
     else:
-        y = torch.matmul(x, w).to(torch.float32)
+        # Mixed dtypes promote, as in JAX: a pre-pass leaves a float32 weight
+        # in a bf16 stream until the weight is quantized.
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(dt), w.to(dt)).to(torch.float32)
         if b is not None:
             y = y + b
-    return y.to(x.dtype)
+    y = y.to(in_dtype)
+    if ctx is not None:
+        ctx.collect(name, "output", y)
+    return y

@@ -65,6 +65,11 @@ class QTensorMeta:
     pack_group: int = 0  # rows per nibble group (gs for GROUP, ceil(K/2) else)
     input_quant: ActQuantSpec = _NO_ACT
     output_quant: ActQuantSpec = _NO_ACT
+    # Quantized with float zero points (HQQ). Recorded when the site is
+    # quantized, since ``engine.prepare_kernel_scales`` holds every packed
+    # zero point as float32: such a site never takes the W4A8 kernel, whose
+    # int8 fold needs integer zero points.
+    float_zero_point: bool = False
 
     @property
     def qt(self) -> QuantType:
@@ -219,6 +224,7 @@ def make_qtensor(
         pack_group=gs,
         input_quant=input_quant,
         output_quant=output_quant,
+        float_zero_point=zero_point.is_floating_point(),
     )
     return QTensor(data=data, scale=scale, zero_point=zero_point, meta=meta,
                    input_scale=input_scale, input_zero_point=input_zero_point,

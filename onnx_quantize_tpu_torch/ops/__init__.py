@@ -35,16 +35,17 @@ def convert_to_w4a8(params):
     W4A8 kernel) and symmetric 8-bit weights (the W8A8 kernel). Sites whose
     input quantization is already set, HQQ-style float zero points and
     asymmetric 8-bit weights are left as they are. The weights are unchanged;
-    only the execution spec differs. Run it before the engine bakes the
-    kernel scales (``engine.prepare_kernel_scales`` holds zero points as
-    float32, which this rule, like the reference's, reads as float).
+    only the execution spec differs. A float zero point is read from
+    ``QTensorMeta.float_zero_point``, set when the site was quantized, so the
+    rule holds also after the engine baked the kernel scales (which holds
+    every packed zero point as float32).
     """
 
     def eligible(qt: QTensor) -> bool:
         if qt.meta.input_quant.mode != "none":
             return False
         if qt.meta.packed:
-            return not qt.zero_point.is_floating_point()
+            return not qt.meta.float_zero_point
         return qt.meta.qt.bitwidth == 8 and qt.meta.symmetric
 
     def visit(tree):

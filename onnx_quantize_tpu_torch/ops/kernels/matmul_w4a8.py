@@ -268,7 +268,9 @@ def takes_int8_activations(qt: QTensor) -> bool:
 
 
 def _w4a8_predicate(x, qt: QTensor, bias) -> bool:
-    return qt.meta.packed and takes_int8_activations(qt)
+    # Integer zero points only: HQQ's float zero point cannot fold into the
+    # int8 sums, so such a site takes W4 behind the activation QDQ.
+    return qt.meta.packed and not qt.meta.float_zero_point and takes_int8_activations(qt)
 
 
 @register_kernel(_w4a8_predicate)

@@ -4,8 +4,8 @@ Counterpart of ``onnx_quantize_tpu/plan.py``: one :class:`PlanEntry` per
 quantizable linear site, keyed by site name, with the group size resolved
 against the site's ``in_features``, filled by calibration with the site's
 static activation qparams and then stamped with the qconfig the transform
-reads. The raw captured inputs of GPTQ, AWQ and SmoothQuant wait with those
-algorithms (ROADMAP.md, Queue A item 10).
+reads, and holding the raw site inputs that GPTQ, AWQ and SmoothQuant read
+(``captured_input``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,10 @@ class PlanEntry:
     input_zero_point: torch.Tensor | None = None
     output_scale: torch.Tensor | None = None
     output_zero_point: torch.Tensor | None = None
+
+    # The site's input activations over the calibration set, (samples, ...,
+    # in_features) float32 on the calibration device (GPTQ/AWQ/SmoothQuant).
+    captured_input: torch.Tensor | None = None
 
     @property
     def name(self) -> str:
@@ -112,7 +116,8 @@ def build_plan(sites: list[LinearSite], qconfig: QConfig) -> QuantPlan:
 
 def stamp_qconfig(plan: QuantPlan, qconfig: QConfig) -> None:
     """Stamp the qconfig on every entry, without its calibration data (as the
-    reference stamps it)."""
-    stamped = dataclasses.replace(qconfig, calibration_data=None)
+    reference stamps it). Each entry gets its own copy, its weight args
+    included, since a pre-pass may change one site's (AWQ's clip ratio)."""
     for entry in plan:
-        entry.qconfig = stamped
+        weights = None if qconfig.weights is None else dataclasses.replace(qconfig.weights)
+        entry.qconfig = dataclasses.replace(qconfig, calibration_data=None, weights=weights)

@@ -1,14 +1,15 @@
-"""quantize(): RTN over a model's param tree, QDQ or QLINEAR.
+"""quantize(): a model's param tree through its weight algorithm, QDQ or QLINEAR.
 
 Counterpart of ``onnx_quantize_tpu/quantize.py``:
 
     model + params + QConfig
       -> build the plan over the model's Linear sites (ignore regexes)
       -> untie shared weights
-      -> calibrate static activations, stamp the qconfig (pre-passes)
-      -> per-site RTN + QTensor packing, stamped with the activation specs
-         and the calibrated qparams; biases quantized (QBias) as the format
-         requires
+      -> calibrate (static activations, captured inputs), stamp the
+         qconfig, run the pre-passes (SmoothQuant, AWQ), re-calibrate
+      -> per site, the weight algorithm (RTN, GPTQ, HQQ) + QTensor packing,
+         stamped with the activation specs and the calibrated qparams;
+         biases quantized (QBias) as the format requires
 
 Sites that are already QTensors are left as they are, so mixed configs are
 applied as sequential calls with complementary ignore patterns (the body in
@@ -67,7 +68,8 @@ def _quantize_bias_qdq(bias: torch.Tensor, qconfig: QConfig) -> QBias:
     w = qconfig.weights
     b_q, b_scale, b_zp = rtn_quantize(
         bias.reshape(-1, 1), w.dtype, strategy=QuantizationStrategy.TENSOR, group_size=-1,
-        is_symmetric=w.symmetric, reduce_range=w.reduce_range,
+        is_symmetric=w.symmetric, reduce_range=w.reduce_range, clip_ratio=w.clip_ratio,
+        mse=w.mse, zp_dtype=w.zp_dtype,
     )
     return QBias(data=b_q.reshape(-1), scale=b_scale, zero_point=b_zp,
                  quant_type=w.dtype.value)
@@ -90,10 +92,8 @@ def _transform_site(entry: PlanEntry, params: dict) -> None:
                 f"but no calibrated {kind} scale is present."
             )
     gs = entry.group_size if entry.group_size is not None else -1
-    q, scale, zp = rtn_quantize(
-        site_params["w"], w_args.dtype, strategy=w_args.strategy, group_size=gs,
-        is_symmetric=w_args.symmetric, reduce_range=w_args.reduce_range,
-    )
+    weight = site_params["w"].to(torch.float32)
+    q, scale, zp = w_args.algorithm.quantize_weights(weight, qconfig, entry)
     qt = make_qtensor(
         q, scale, zp, quant_type=w_args.dtype, strategy=w_args.strategy,
         group_size=gs, symmetric=w_args.symmetric, reduce_range=w_args.reduce_range,
@@ -115,6 +115,8 @@ def _transform_site(entry: PlanEntry, params: dict) -> None:
         elif not is_nbits_kernel_compatible(qconfig, entry.name):
             # The grouped weight-only (nbits) case keeps its float bias.
             site_params["b"] = _quantize_bias_qdq(bias, qconfig)
+    # The captured inputs can be large; free them once consumed.
+    entry.captured_input = None
 
 
 @torch.no_grad()
@@ -123,9 +125,11 @@ def quantize(model: Module, params: dict, qconfig: QConfig):
 
     Returns ``(quantized_params, plan)``. The input tree is not mutated;
     quantized sites carry :class:`QTensor` weights (and :class:`QBias`
-    biases where the format requires) on the weights' device. Static
-    activations are calibrated first, on the device the params live on
-    unless ``qconfig.calibration_params.backend`` names another.
+    biases where the format requires) on the weights' device, and a site a
+    pre-pass rescaled carries its input ``prescale``. Calibration (static
+    activations, the inputs GPTQ and the pre-passes read) runs first, on the
+    device the params live on unless ``qconfig.calibration_params.backend``
+    names another; the algorithms run on the weights' device.
     """
     if not isinstance(qconfig, QConfig):
         raise TypeError(f"qconfig must be a QConfig, got {type(qconfig)}")

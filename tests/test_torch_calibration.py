@@ -153,11 +153,9 @@ def test_factory_matches_jax():
     for fn in (get_calibrator, jax_get_calibrator):
         with pytest.raises(ValueError):
             fn("kl-nope")
-    # Percentile and entropy exist in the reference and are not ported yet.
+    # Percentile and entropy, as in the reference.
     for method in ("percentile", "entropy"):
-        assert jax_get_calibrator(method) is not None
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_calibrator(method)
+        assert type(get_calibrator(method)).__name__ == type(jax_get_calibrator(method)).__name__
 
 
 # CalibrationParams keyword sets: the reference's validators decide each.

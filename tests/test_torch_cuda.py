@@ -15,8 +15,14 @@ import pytest
 import torch
 
 import onnx_quantize_tpu_torch as oqt
-from onnx_quantize_tpu_torch.algorithms import quantize_bias, rtn_quantize
+from onnx_quantize_tpu_torch.algorithms import (
+    gptq_quantize,
+    hqq_quantize,
+    quantize_bias,
+    rtn_quantize,
+)
 from onnx_quantize_tpu_torch.core.enums import QFormat
+from onnx_quantize_tpu_torch.core.numerics import dequantize
 from onnx_quantize_tpu_torch.engine import InferenceEngine, prepare_kernel_scales
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
 from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QBias, make_qtensor
@@ -746,3 +752,63 @@ def test_mlp_megakernel_on_card_counts_launches():
     assert torch.equal(gpu_toks, cpu_toks)
     _, _, launched = run(on_card, "auto")
     assert launched == (0, 4 * cfg.num_layers * 6, 6)
+
+
+@pytest.mark.parametrize("K,N,M", [(640, 1536, 32), (640, 1536, 2048), (320, 200, 5)])
+def test_w4_float_zero_points_match_plain(K, N, M):
+    """HQQ's float zero points through the W4 kernel: within 1e-4 of max|y|
+    of the plain version, in bf16 and float32; a dynamic int8 spec on such a
+    site still runs W4 (behind the activation QDQ), never W4A8."""
+    _require_cuda()
+    w = torch.from_numpy((0.1 * np.random.default_rng(K).standard_normal((K, N))).astype(
+        np.float32))
+    gs = resolve_group_size(K, 64)
+    q, s, z = hqq_quantize(w, oqt.QuantType.QUInt4, gs)
+    assert bool((z != torch.round(z)).any())
+    qt = make_qtensor(q, s, z, quant_type=oqt.QuantType.QUInt4,
+                      strategy=oqt.QuantizationStrategy.GROUP, group_size=gs, symmetric=False,
+                      reduce_range=False)
+    assert qt.meta.float_zero_point
+    for spec in (ActQuantSpec(mode="none"), ActQuantSpec(mode="dynamic", dtype="int8",
+                                                         symmetric=True)):
+        site = prepare_kernel_scales({"w": dataclasses.replace(
+            qt, meta=dataclasses.replace(qt.meta, input_quant=spec))})["w"]
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(np.random.default_rng(M).standard_normal((M, K)).astype(
+                np.float32)).to(xdt)
+            before = (matmul_w4.launches, matmul_w4a8.launches)
+            got = quantized_matmul(x.cuda(), site.to("cuda"))
+            torch.cuda.synchronize()
+            assert (matmul_w4.launches, matmul_w4a8.launches) == (before[0] + 1, before[1])
+            want = _qdq_matmul(x.float(), site)
+            assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_gptq_and_hqq_sites_on_card_match_cpu():
+    """One 270M-shaped site (K=640, N=1024) quantized on the card and on the
+    CPU from the same weight and inputs. HQQ: equal codes and scales, zero
+    points within 1e-6 relative (its means and powers are taken in float64).
+    GPTQ: the Hessian and Cholesky factors are float32 on each device's
+    library, so at most 1% of the codes differ and the reconstruction error
+    stays within 1%."""
+    _require_cuda()
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy((0.05 * rng.standard_normal((640, 1024))).astype(np.float32))
+    mix = rng.standard_normal((32, 640)).astype(np.float32)
+    x = torch.from_numpy((rng.standard_normal((8, 128, 32)).astype(np.float32) @ mix
+                          + 0.1 * rng.standard_normal((8, 128, 640))).astype(np.float32))
+    hq = [hqq_quantize(w.to(d), oqt.QuantType.QUInt4, 128) for d in ("cpu", "cuda")]
+    assert torch.equal(hq[0][0], hq[1][0].cpu()) and torch.equal(hq[0][1], hq[1][1].cpu())
+    torch.testing.assert_close(hq[1][2].cpu(), hq[0][2], rtol=1e-6, atol=0)
+    args = dict(quant_type=oqt.QuantType.QUInt4, strategy=oqt.QuantizationStrategy.GROUP,
+                group_size=128)
+    gq = [gptq_quantize(w.to(d), x.to(d), **args) for d in ("cpu", "cuda")]
+    assert (gq[0][0] != gq[1][0].cpu()).float().mean().item() <= 0.01
+
+    def recon(q, s, z):
+        dq = dequantize(q.cpu(), s.cpu(), z.cpu(), preprocess=True,
+                        strategy=oqt.QuantizationStrategy.GROUP, group_size=128)
+        flat = x.reshape(-1, 640)
+        return (flat @ w - flat @ dq).norm().item()
+
+    assert abs(recon(*gq[1]) - recon(*gq[0])) <= 0.01 * recon(*gq[0])

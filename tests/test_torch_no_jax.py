@@ -42,8 +42,9 @@ def test_port_sources_found():
     scanned = {str(p.relative_to(REPO / "onnx_quantize_tpu_torch")) for p in PORT_FILES
                if p.is_relative_to(REPO / "onnx_quantize_tpu_torch")}
     assert {"calibration/__init__.py", "calibration/base.py", "calibration/calibrate.py",
-            "calibration/factory.py", "calibration/minmax.py",
-            "prepasses/__init__.py"} <= scanned
+            "calibration/factory.py", "calibration/minmax.py", "calibration/percentile.py",
+            "calibration/entropy.py", "algorithms/gptq.py", "algorithms/hqq.py",
+            "prepasses/__init__.py", "prepasses/awq.py", "prepasses/smooth_quant.py"} <= scanned
 
 
 def test_importing_the_port_builds_no_kernel():

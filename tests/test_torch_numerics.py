@@ -13,7 +13,7 @@ from onnx_quantize_tpu.core.enums import QuantizationStrategy as JStrategy
 from onnx_quantize_tpu.models.gemma3 import Gemma3 as JGemma3
 from onnx_quantize_tpu.models.gemma3 import Gemma3Config as JGemma3Config
 from onnx_quantize_tpu_torch import QActivationArgs, QConfig, QuantType, QWeightArgs, quantize
-from onnx_quantize_tpu_torch.core.qconfig import CalibrationParams
+from onnx_quantize_tpu_torch.core.qconfig import SmoothQuantConfig
 from onnx_quantize_tpu_torch.algorithms import rtn_quantize
 from onnx_quantize_tpu_torch.core import numerics as tnum
 from onnx_quantize_tpu_torch.core.enums import QuantizationStrategy
@@ -120,25 +120,39 @@ def test_quantize_tree_bit_equal_with_group_fallback():
 
 
 @pytest.mark.parametrize("kwargs", [
-    # Static activations calibrate with minmax; the other calibrators and the
-    # pre-passes are not ported.
+    # QuaRot is the one pre-pass not ported (ROADMAP.md, Queue A item 10.4),
+    # alone, after another pre-pass, or with its online rotations.
     dict(weights=QWeightArgs(dtype="int8", group_size=-1),
          input_activations=QActivationArgs(dtype="uint8"),
-         calibration_params=CalibrationParams(method="percentile")),
+         preprocessors=[{"preprocessing_type": "rotate"}]),
     dict(weights=QWeightArgs(dtype="uint4", group_size=128),
-         calibration_params=dict(method="entropy")),
-    dict(weights=QWeightArgs(dtype="uint4", group_size=128), preprocessors=[object()]),
+         preprocessors=[SmoothQuantConfig(), {"preprocessing_type": "rotate", "mode": "random"}]),
+    dict(weights=QWeightArgs(dtype="uint4", group_size=128),
+         preprocessors=[{"preprocessing_type": "rotate", "rotate_down": True}]),
 ])
 def test_off_slice_config_raises_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 10.4"):
         QConfig(**kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [dict(algorithm="gptq"), dict(algorithm="hqq"),
                                     dict(mse=True)])
 def test_off_slice_weight_args_raise_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        QWeightArgs(dtype="uint4", group_size=128, **kwargs)
+    """GPTQ, HQQ and the MSE search are ported now: the weight args resolve as
+    the JAX package's do (HQQ, which needs its strategy spelled out there,
+    refuses an inferred one, as there)."""
+    jkw = dict(kwargs)
+    if "algorithm" in jkw:
+        jkw["algorithm"] = {"gptq": oqt.GPTQConfig, "hqq": oqt.HqqConfig}[jkw["algorithm"]]()
+    for strategy in (None, "group"):
+        outcomes = []
+        for cls, kw in ((QWeightArgs, kwargs), (oqt.QWeightArgs, jkw)):
+            try:
+                w = cls(dtype="uint4", group_size=128, strategy=strategy, **kw)
+                outcomes.append((w.strategy.value, w.mse, type(w.algorithm).__name__.lower()))
+            except ValueError:
+                outcomes.append("ValueError")
+        assert outcomes[0] == outcomes[1]
 
 
 @pytest.mark.parametrize("gs,strategy", [(None, "tensor"), (-1, "channel"), (64, "group")])

@@ -179,10 +179,10 @@ SELECT_CASES = [
     ("w8a8-group", dict(dtype="int8", strategy="group", gs=32, sym=True, input_quant=DYN_INT8),
      matmul_w8a8),
     ("w4-weight-only", dict(dtype="uint4", strategy="group", gs=32, sym=False), matmul_w4),
-    # The W4A8 kernel folds a float zero point in as exactly as an integer
-    # one; convert_to_w4a8, not the predicate, keeps HQQ sites weight-only.
+    # As in the JAX package, a float (HQQ) zero point never takes W4A8: the
+    # site runs W4 behind the activation QDQ, baked scales or not.
     ("w4-hqq-float-zp", dict(dtype="uint4", strategy="group", gs=32, sym=False,
-                             input_quant=DYN_INT8, zp_float=True), matmul_w4a8),
+                             input_quant=DYN_INT8, zp_float=True), matmul_w4),
     ("w4-a8-reduce-range", dict(dtype="uint4", strategy="group", gs=32, sym=False,
                                 input_quant=DYN_INT8, reduce_range_spec=True), matmul_w4),
     ("w8-weight-only", dict(dtype="int8", strategy="channel", gs=-1, sym=True), matmul_w8),
