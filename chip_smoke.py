@@ -88,6 +88,27 @@ Phases (any failed check exits non-zero; each prints its seconds):
    unfused), HQQ (72 W4 + 1 W8, float zero points), SmoothQuant (126 Q8 + 1
    W8, equal to the run with Q8 plain); then the window NLL of each beside
    the bf16 and RTN models'.
+4c. QuaRot on Llama-3.2-1B (published widths: hidden 2048, 16 layers, 32
+   query heads on 8 KV heads of 64, vocab 128,256, llama3 rope scaling),
+   random weights from seed 0 at Llama's initializer range (std 0.02).
+   First W4, W8, W4A8 and W8A8 at its site shapes and flash attention at its
+   window shape (T=2048, D=64, GQA 4), as in phase 3. (a) float32: the model
+   through the QuaRot pass (R1 and the online R2/R3/R4) against the
+   unrotated one, prefill logits at B=4, T=128 within 1e-3 of the largest.
+   Then the bf16 model through ``RotateConfig`` with RTN uint4 g128 on the
+   body and the int8 per-channel lm_head, fused: (b) converted to W4A8 (64
+   W4A8 + 1 W8A8 a forward) through phase 4's sequence, logits and tokens
+   equal to the plain run; (c) the W4 tree (64 W4 + 1 W8), within 5%,
+   beside a sensitivity control (the plain run against itself with one bf16
+   ulp added to 0.1% of the embedding); (d) window scoring of (c), flash
+   attention in all 16 layers, mean NLL within 0.2% of the plain run; (e)
+   the W4A8 tree saved and loaded as a checkpoint: bit-equal logits once the
+   online rotations are stamped again, other logits without; (f) layer 0's
+   down_proj through
+   MatMulNBits export and import: equal codes, scales, zero points and W4
+   outputs; (g) the structured-weight Llama anchor (hidden 256, 4 layers):
+   plain per-channel int4 loses more than 10 ppl and the rotation recovers
+   at least 70% of it. Prints its seconds and peak device memory.
 5. Rates: decode tokens/s for the quantized arm, the same with flash decode
    (``fused_attention=True``), the W4A8 arm, the Q8 arm, the quantized arm
    with the fused MLP and an unquantized bf16 arm, by
@@ -101,15 +122,17 @@ Phases (any failed check exits non-zero; each prints its seconds):
    and W8A8 launch on the tensor-core route; for the A8 model also an equal
    ppl with only its two matmul kernels swapped; prints
    the bf16 model's ppl beside them.
-7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 640 tokens through
+7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 576 tokens through
    an engine with an int8 cache and ``fused_attention=True`` (flash decode in
    every layer of every one-token forward, past the 512-token window).
    Checks the launch counts and the NLL against ``fused_attention=False``;
    prints ``score_ppl`` for the float, int8 and int4 caches and steps/s.
 
-The run ends by counting the kernels the activation quantizer and one whole
-site launch, and by profiling decode steps of the W4, A8, Q8 and MLP arms
-and one scoring window of the W4 model (``torch.profiler``: launches, device
+The run ends by counting the device operations (as the nodes of a CUDA graph
+captured from one call) of the activation quantizer, the zero pad of its
+codes and one whole A8 site (which must be their sum plus one W4A8 kernel),
+a W4 and a Q8 site (each non-zero), and by profiling decode steps of the W4,
+A8, Q8 and MLP arms and one scoring window of the W4 model (``torch.profiler``: launches, device
 busy time, idle share, the matmul kernels' share). The line
 before the last is a JSON object
 of per-kernel results, each with the least time the card could take for the
@@ -125,6 +148,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -421,7 +445,7 @@ def split_scratch_clear() -> bool:
                for key, (parts, counters) in SPLIT_SCRATCH.items())
 
 
-def run_kernel_checks(gen) -> dict:
+def run_kernel_checks(gen, cases=KERNEL_CASES) -> dict:
     """W4/W8/W4A8/W8A8 against their plain versions, each case's launch plan
     printed; the M=32 numbers go to the kernels line; W4 (a layer's four
     sites), W8 and W8A8 (the lm_head) also at M=2048
@@ -436,7 +460,7 @@ def run_kernel_checks(gen) -> dict:
                "dequant_ms": 0.0, "bytes": 0, "ops": 0} for k in BF16_LIBRARY}
     big_a8 = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
               for k in ("w8a8", "w4a8")}
-    for name, kernel, K, N, dtype, gs, sym, rows, timed in KERNEL_CASES:
+    for name, kernel, K, N, dtype, gs, sym, rows, timed in cases:
         qt = random_qtensor(K, N, dtype, gs, sym, gen, a8=kernel in ("w4a8", "w8a8"),
                             hqq=name.startswith("hqq_"))
         check(qt.meta.float_zero_point == name.startswith("hqq_"),
@@ -1431,6 +1455,281 @@ def run_quantizer_algorithms(model, params, qparams, fparams, card) -> dict:
     return launches
 
 
+# -- phase 4c: QuaRot on Llama-3.2-1B ---------------------------------------------
+
+# The Llama-3.2-1B body's sites (K, N): the fused qkv, o, the fused gate_up and
+# down; the lm_head (2048, 128256). W4 and W8 at a decode step (M=32) and a
+# scoring window (M=2048), W4A8 at M=32 and a 32x128 prefill (M=4096), W8A8
+# at M=32 and M=2048; checked and timed as the 270M cases are.
+LLAMA_KERNEL_CASES = [
+    *((name, kernel, K, N, "uint4", 128, False, rows, True)
+      for kernel, rows in (("w4", (32, 2048)), ("w4a8", (32, 4096)))
+      for name, K, N in (("llama_qkv", 2048, 3072), ("llama_o", 2048, 2048),
+                         ("llama_gate_up", 2048, 16384), ("llama_down", 8192, 2048))),
+    ("llama_lm_head", "w8", 2048, 128256, "int8", -1, True, (32, 2048), True),
+    ("llama_lm_head", "w8a8", 2048, 128256, "int8", -1, True, (32, 2048), True),
+]
+# Why (set before the first run, PERF.md section 6): the rotated float32
+# model computes the same function as the unrotated one; they differ by the
+# float32 rounding of the folded weights (2^-24 relative) and float32 sums in
+# another order, carried through 16 layers. A narrower model (hidden 512, 16
+# layers) on the CPU moved its logits by 1.6e-5 of the largest; 1e-3 of the
+# largest logit bounds that at full width, while a wrong fold moves them by
+# the logits' own size.
+ROTATION_REL_TOL = 1e-3
+# Llama's published initializer range (its HF config.json's
+# "initializer_range": 0.02). The port's Linear.init draws 0.1 times a
+# truncated standard normal (the JAX package's init); at Llama-3.2-1B's widths
+# that draw makes a chaotic pre-norm decoder (no post-norms cap the residual
+# stream), in which a one-ulp change of a few embedding entries moves the bf16
+# logits by more than the W4 arm's 5% bar (PERF.md section 6). The
+# phase's projections are drawn at 0.02, so the bar tells the W4 kernel's
+# summation order from a fault.
+LLAMA_INIT_STD = 0.02
+# The structured anchor's ask (tests/integration/test_rotate_ppl.py:49-55):
+# plain per-channel int4 loses more than 10 ppl, and the rotation recovers at
+# least 70% of that gap.
+ANCHOR_MIN_GAP, ANCHOR_MAX_SHARE = 10.0, 0.3
+
+
+def run_llama_flash_attention(gen) -> dict:
+    """Flash attention at Llama-3.2-1B's window shape (T=2048, 32 query heads
+    on 8 KV heads of 64, causal, bf16) against its plain version, and one
+    window's 16 layers timed: the kernel, the plain version and SDPA."""
+    from onnx_quantize_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, T, Hq, Hkv, D, layers = 1, 2048, 32, 8, 64, 16
+    args = fa_inputs(B, T, Hq, Hkv, D, torch.bfloat16, gen)
+    plan = fa.fa_plan(B, T, T, Hq, Hkv, D, None, torch.bfloat16)
+    routes = dict(fa.route_launches)
+    got = fa.flash_attention(*args, sliding_window=None)
+    want = fa.flash_attention_reference(*args, sliding_window=None)
+    torch.cuda.synchronize()
+    check(plan.route == "mma" and fa.route_launches["mma"] == routes["mma"] + 1,
+          "Llama flash attention did not take the tensor-core route")
+    err = check_attention("fa_llama_T2048_g4_D64", got, want, torch.bfloat16)
+    res = {"max_abs_err": err,
+           "ms": layers * cuda_time_ms(lambda: fa.flash_attention(*args, sliding_window=None), 20),
+           "plain_ms": layers * cuda_time_ms(
+               lambda: fa.flash_attention_reference(*args, sliding_window=None), 5),
+           "library_ms": layers * sdpa_ms(*args, None)}
+    res["bound_ms"], res["bound_by"] = bound(
+        layers * nbytes(*args, got), layers * 4 * B * Hq * D * causal_pairs(T, None), "bf16")
+    print(f"kernel flash_attention fa_llama_T2048_g4_D64 (16 causal layers): {describe(plan)} "
+          f"max_abs_err={err:.3e} kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+          f"sdpa_ms={res['library_ms']:.4f} bound_ms={res['bound_ms']:.5f} "
+          f"({res['bound_by']})", flush=True)
+    return res
+
+
+def llama_params(model) -> dict:
+    """Llama-3.2-1B's random weights from seed 0: the port's init with every
+    projection scaled from the Linear init's 0.1 to ``LLAMA_INIT_STD`` (the
+    embedding's 0.02 is already Llama's; the tied lm_head views it)."""
+    from onnx_quantize_tpu_torch.utils import tree_get
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    for site in model.linear_sites():
+        if site.name != "lm_head":
+            node = tree_get(params, site.param_path)
+            node["w"] = node["w"] * (LLAMA_INIT_STD / 0.1)
+    return params
+
+
+def sensitivity_control(model, tree, card) -> None:
+    """The W4 arm's bar beside the model's own sensitivity: the plain run's
+    prefill logits against the plain run with one bf16 ulp added to 0.1% of
+    the embedding's entries (no kernel differs). Not gated."""
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    B, T = 32, 128
+    ids = np.random.default_rng(SEED).integers(1, model.cfg.vocab_size, size=(B, T))
+    emb = tree["embed"]["w"]
+    bump = torch.rand(emb.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                      device="cuda") < 1e-3
+    bumped = {**tree, "embed": {"w": torch.where(
+        bump, torch.nextafter(emb, torch.full_like(emb, math.inf)), emb)}}
+    logits = []
+    with plain_kernels():
+        for t in (tree, bumped):
+            engine = InferenceEngine(model, t, max_batch=B, max_seq=512, kv_quant=True,
+                                     dtype=torch.bfloat16)
+            logits.append(engine.prefill(engine.new_cache(), ids,
+                                          np.full((B,), T, np.int32))[1].float())
+    diff = (logits[1] - logits[0]).abs().max().item()
+    peak = logits[0].abs().max().item()
+    print(f"sensitivity control (Llama-3.2-1B QuaRot W4, plain, {int(bump.sum())} embedding "
+          f"entries one bf16 ulp up) on {card}: prefill logits max_abs_diff={diff:.4e} "
+          f"({diff / peak:.4f} of max|logit| {peak:.4e}; not gated)", flush=True)
+
+
+def llama_exactness(card) -> None:
+    """Arm (a): the float32 Llama-3.2-1B and the same model through the
+    QuaRot pass (R1, R2, R3, R4): prefill logits at B=4, T=128."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.models.llama import LLAMA32_1B, Llama
+    from onnx_quantize_tpu_torch.plan import QuantPlan
+    from onnx_quantize_tpu_torch.utils import copy_tree
+
+    model = Llama(LLAMA32_1B)
+    params = llama_params(model)
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, LLAMA32_1B.vocab_size, size=(4, 128))).to("cuda")
+    with torch.inference_mode():
+        ref = model(params, ids).float()
+        rotate = oqt.RotateConfig(rotate_qk=True, rotate_v=True, rotate_down=True, seed=SEED)
+        rotated = copy_tree(params)
+        (_, secs) = timed(lambda: rotate.build_pass(None)(model, rotated, QuantPlan(), None))
+        out = model(rotated, ids).float()
+    diff = (out - ref).abs().max().item()
+    peak = ref.abs().max().item()
+    print(f"Llama-3.2-1B float32 QuaRot R1+R2/R3/R4 (fold {secs:.2f} s on the card) on {card}: "
+          f"prefill logits B=4 T=128 rotated vs unrotated max_abs_diff={diff:.4e} "
+          f"({diff / peak:.3e} of max|logit| {peak:.4e}), tol {ROTATION_REL_TOL:.0e} of it",
+          flush=True)
+    check(bool(torch.isfinite(out).all()), "the rotated Llama's logits are not finite")
+    check(diff <= ROTATION_REL_TOL * peak, "the rotated float32 Llama's logits moved")
+
+
+def llama_structured_anchor(card) -> None:
+    """Arm (g): test_rotate_ppl's structured-weight Llama (hidden 256, 4
+    layers, vocab 2048) on the card, float32: fp, per-channel int4 and
+    rotate + per-channel int4 ppl over the pins' 2048-token Zipf stream."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.models.llama import Llama, tiny_llama_config
+    from onnx_quantize_tpu_torch.models.structured import structured_params, zipf_tokens
+    from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
+
+    model = Llama(tiny_llama_config(vocab_size=2048, hidden_size=256, intermediate_size=1024,
+                                    num_layers=4, num_heads=4, num_kv_heads=1, head_dim=64))
+    params = structured_params(model, device="cuda")
+    tokens = zipf_tokens(2048, 2048)
+    qc = dict(weights=oqt.QWeightArgs(dtype="int4", group_size=-1), ignore=["lm_head"])
+    trees = {"fp": params,
+             "int4 channel": oqt.quantize(model, params, oqt.QConfig(**qc))[0],
+             "rotate + int4 channel": oqt.quantize(model, params, oqt.QConfig(
+                 preprocessors=[oqt.RotateConfig(seed=3)], **qc))[0]}
+    ppl = {k: perplexity_from_tokens(model, t, tokens, max_length=256, stride=128)
+           for k, t in trees.items()}
+    gap, gap_rot = ppl["int4 channel"] - ppl["fp"], ppl["rotate + int4 channel"] - ppl["fp"]
+    print(f"structured Llama anchor (hidden 256, 4 layers, 2048 tokens, window 256, stride 128; "
+          f"the CPU pins 1965.2, 2017.5, 1968.0) on {card}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ppl.items())
+          + f"; int4 gap {gap:.4f}, rotated gap {gap_rot:.4f} "
+          f"({100 * (1 - abs(gap_rot) / gap):.1f}% recovered)", flush=True)
+    check(gap > ANCHOR_MIN_GAP, "per-channel int4 lost no more than 10 ppl on the anchor")
+    check(abs(gap_rot) < ANCHOR_MAX_SHARE * gap, "the rotation recovered less than 70% of the "
+                                                 "int4 gap on the anchor")
+
+
+def run_llama_quarot(card) -> dict:
+    """Phase 4c: QuaRot on Llama-3.2-1B at full width, random weights from
+    seed 0 (arms (a)-(g), PERF.md section 4). Returns the launches of its
+    kernels."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+    from onnx_quantize_tpu_torch.interop import export_matmul_nbits, import_matmul_nbits
+    from onnx_quantize_tpu_torch.models.gemma3 import fuse_gemma3_projections
+    from onnx_quantize_tpu_torch.models.llama import LLAMA32_1B, Llama
+    from onnx_quantize_tpu_torch.nn.qtensor import unpack_k_pairs
+    from onnx_quantize_tpu_torch.ops import convert_to_w4a8, quantized_matmul
+    from onnx_quantize_tpu_torch.prepasses.rotate import stamp_online_rotations
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llama_exactness(card)
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(LLAMA32_1B, dtype="bfloat16")
+    model = Llama(cfg)
+    params = llama_params(model)
+    rotate = oqt.RotateConfig(rotate_qk=True, rotate_v=True, rotate_down=True, seed=SEED)
+    body = oqt.QConfig(weights=oqt.QWeightArgs(dtype="uint4", group_size=128),
+                       preprocessors=[rotate], ignore=["lm_head"])
+    head = oqt.QConfig(weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+                       ignore=[r"^layers\."])
+    (q, plan), q_s = timed(lambda: oqt.quantize(model, params, body))
+    del params
+    check(len(plan) == 7 * cfg.num_layers and model.layers[0].attn.qk_rot is not None
+          and model.layers[0].mlp.down_rot is not None,
+          "QuaRot quantize: a site missing or the online rotations not stamped")
+    q, _ = oqt.quantize(model, q, head)
+    print(f"Llama-3.2-1B bf16 QuaRot (R1+R2/R3/R4, seed {SEED}) and RTN uint4 g128 of "
+          f"{len(plan)} body sites on the card: {q_s:.2f} s", flush=True)
+    w4 = fuse_gemma3_projections(q)
+    a8 = convert_to_w4a8(w4)
+    layers = cfg.num_layers
+
+    # (b) QuaRot W4A8, equal to the plain run; (c) QuaRot W4, within 5%.
+    counts = {"w4a8": 4 * layers, "w8a8": 1}
+    a8_launches, a8_logits = run_main_path(model, a8, "Llama-3.2-1B QuaRot W4A8 body, W8A8 "
+                                           "head", counts, counts, exact=True)
+    counts = {"w4": 4 * layers, "w8": 1}
+    w4_launches, _ = run_main_path(model, w4, "Llama-3.2-1B QuaRot W4 body, W8 head", counts,
+                                   counts)
+    sensitivity_control(model, w4, card)
+
+    # (d) window scoring of the W4 tree: flash attention in all 16 layers.
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 4096)
+    fa_launches, _ = score_windows(model, w4, tokens, "w4", "w8",
+                                   "Llama-3.2-1B bf16 QuaRot W4+int8 head", card)
+
+    # (e) the W4A8 tree through a checkpoint: bit-equal logits once the online
+    # rotations are stamped again, different logits without the stamp.
+    B, T = 32, 128
+    ids = np.random.default_rng(SEED).integers(1, cfg.vocab_size, size=(B, T)).astype(np.int32)
+    lengths = np.full((B,), T, np.int32)
+
+    def prefill(m, tree):
+        engine = InferenceEngine(m, tree, max_batch=B, max_seq=512, kv_quant=True,
+                                 dtype=torch.bfloat16)
+        return engine.prefill(engine.new_cache(), ids, lengths)[1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (_, save_s) = timed(lambda: save_checkpoint(tmp, model, a8, plan))
+        ((model2, a8_back), load_s) = timed(lambda: load_checkpoint(tmp, device="cuda"))
+    unstamped = prefill(model2, a8_back)
+    stamp_online_rotations(model2, qk=True, down=True, block=rotate.online_block, seed=SEED)
+    reloaded = prefill(model2, a8_back)
+    stamp_diff = (unstamped.float() - a8_logits.float()).abs().max().item()
+    print(f"checkpoint of the Llama QuaRot W4A8 tree on {card}: save {save_s:.2f} s, load "
+          f"{load_s:.2f} s; prefill logits after reload and stamp equal: "
+          f"{torch.equal(reloaded, a8_logits)}; without the stamp max_abs_diff "
+          f"{stamp_diff:.4e}", flush=True)
+    check(model2.cfg == cfg, "the checkpoint rebuilt another config")
+    check(torch.equal(reloaded, a8_logits), "the reloaded, re-stamped W4A8 tree's logits differ")
+    check(stamp_diff > 0, "the reloaded tree gave the same logits without the online stamp")
+
+    # (f) MatMulNBits export and import of layer 0's down_proj (a W4 site).
+    site = q["layers.0"]["mlp"]["down_proj"]["w"]
+    art = export_matmul_nbits(site)
+    back = import_matmul_nbits(art.data, art.scales, art.zero_points, K=art.K, N=art.N,
+                               bits=art.bits, block_size=art.block_size, device="cuda")
+    K = site.meta.shape[0]
+    codes_equal = torch.equal(unpack_k_pairs(back.data, K, False, back.meta.pack_group),
+                              unpack_k_pairs(site.data, K, False, site.meta.pack_group))
+    qp_equal = (torch.equal(back.scale, site.scale)
+                and torch.equal(back.zero_point.float(), site.zero_point.float()))
+    x = torch.randn((32, K), generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda").to(torch.bfloat16)
+    out_equal = torch.equal(quantized_matmul(x, back), quantized_matmul(x, site))
+    print(f"MatMulNBits export/import of layer 0's down_proj ({K}x{art.N}, uint4, block "
+          f"{art.block_size}) on {card}: codes equal {codes_equal}, scales and zero points "
+          f"equal {qp_equal}, W4 outputs equal {out_equal}", flush=True)
+    check(codes_equal and qp_equal and out_equal, "MatMulNBits round trip changed the site")
+
+    del q, w4, a8, a8_back, reloaded, unstamped
+    torch.cuda.empty_cache()
+    llama_structured_anchor(card)
+    print(f"phase 4c Llama-3.2-1B QuaRot on {card}: {time.perf_counter() - t0:.1f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    launches = {k: a8_launches[k] for k in ("w4a8", "w8a8")}
+    launches.update({k: w4_launches[k] + fa_launches[k] for k in ("w4", "w8")})
+    launches["flash_attention"] = fa_launches["flash_attention"]
+    return launches
+
+
 # -- phase 5: decode rates -------------------------------------------------------
 
 def decode_arm(model, params, kv_quant: bool, fused: bool = False, mega: bool = False,
@@ -1523,6 +1822,47 @@ def count_launches(fn) -> tuple[int, list[str]]:
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return len(names), [n[:40] for n in names]
+
+
+# cudaGraphNodeType values (CUDA runtime API).
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+
+
+def count_graph_nodes(fn) -> tuple[int, list[str]]:
+    """(count, kinds) of the device operations one ``fn()`` call launches: the
+    nodes of a CUDA graph captured from the call, after a warm-up call on the
+    capture stream (it fills the per-stream caches, as the K splits'
+    scratch). No profiler: late in a long run a torch.profiler session can
+    lose all of its device records (PERF.md section 6)."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    try:
+        cudart = ctypes.CDLL(None)  # the runtime torch loaded with global symbols
+        cudart.cudaGraphGetNodes
+    except AttributeError:
+        cudart = ctypes.CDLL("libcudart.so.12")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cudart.cudaGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cudart.cudaGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+          "cudaGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cudart.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cudaGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_KINDS.get(kind.value, str(kind.value)))
+    return count.value, kinds
 
 
 # Kernel names (the mma routes' kernels, W8's x-stationary form among them).
@@ -1618,65 +1958,78 @@ def timed(fn):
 MEAN_NLL_REL_TOL = 2e-3
 
 
+def score_windows(model, params, tokens, body: str, head: str, label: str, card: str,
+                  exact: bool = False) -> tuple[dict, float]:
+    """``perplexity_from_tokens`` of ``params`` over ``tokens`` (windows of 2048,
+    stride 512) through the kernels, launching per window 4 ``body`` kernels a
+    layer, one ``head`` kernel and flash attention in every layer (each on the
+    tensor cores), and no other; the mean NLL against the same run with every
+    kernel swapped for its plain version; when ``exact``, the ppl equal to the
+    run with only the two matmul kernels plain. Returns (launches, ppl)."""
+    from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
+
+    cfg = model.cfg
+    max_length, stride = 2048, 512
+    windows = 1 + (len(tokens) - max_length) // stride
+
+    def score():
+        return timed(lambda: perplexity_from_tokens(model, params, tokens, max_length, stride))
+
+    reset_counts()
+    ppl, secs = score()
+    launches = kernel_counts()
+    want = {name: 0 for name in launches}
+    want.update({body: 4 * cfg.num_layers * windows, head: windows,
+                 "flash_attention": cfg.num_layers * windows})
+    check(launches == want, f"{label} window scoring launched {launches}, expected {want}")
+    routes = dict(kernel_modules()["flash_attention"].route_launches)
+    check(routes == {"mma": cfg.num_layers * windows, "simt": 0},
+          f"{label} window scoring ran flash attention on the routes {routes}, expected "
+          "every launch on the tensor cores")
+    check_on_mma(f"{label} window scoring")
+    check(math.isfinite(ppl), f"{label} window scoring ppl {ppl} is not finite")
+    with plain_kernels():
+        ppl_plain, secs_plain = score()
+    check(kernel_counts() == launches, f"the plain-version {label} scoring run launched "
+                                       "kernels")
+    nll, nll_plain = math.log(ppl), math.log(ppl_plain)
+    tol = MEAN_NLL_REL_TOL * nll_plain
+    print(f"window scoring {label} launches over {windows} windows: {launches}; per window "
+          f"{ {k: v // windows for k, v in launches.items() if v} }", flush=True)
+    print(f"window scoring {label} (seed {SEED}, {len(tokens)} tokens, window {max_length}, "
+          f"stride {stride}) on {card}: ppl kernels {ppl:.4f} ({1e3 * secs / windows:.1f} "
+          f"ms/window), plain versions {ppl_plain:.4f} ({1e3 * secs_plain / windows:.1f} "
+          f"ms/window); mean NLL kernels vs plain {nll:.6f} vs {nll_plain:.6f}, tol {tol:.2e}",
+          flush=True)
+    check(abs(nll - nll_plain) <= tol,
+          f"{label} window scoring mean NLL: kernels disagree with plain")
+    if exact:
+        # Only the matmul kernels swapped: they agree with their plain
+        # versions bit for bit at M=2048 too, and flash attention runs in
+        # both, so the ppl must be equal.
+        with plain_kernels(only=[kernel_modules()[body], kernel_modules()[head]]):
+            ppl_mm_plain, _ = score()
+        print(f"window scoring {label}: ppl with only {body}/{head} plain "
+              f"{ppl_mm_plain:.4f} vs kernels {ppl:.4f}", flush=True)
+        check(ppl_mm_plain == ppl, f"{label} window scoring: the {body}/{head} kernels "
+                                   "disagree with their plain versions")
+    return launches, ppl
+
+
 def run_window_scoring(model, qparams, a8params, fparams, card) -> tuple[dict, dict]:
     """Window scoring of the W4 and the A8 model, each through the kernels and
     with the plain versions, and of the bf16 model. Returns each quantized
     model's launches."""
     from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
 
-    cfg = model.cfg
-    max_length, stride, n_tokens = 2048, 512, 4096
-    windows = 1 + (n_tokens - max_length) // stride
-    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, n_tokens)
-
-    def score(params):
-        return timed(lambda: perplexity_from_tokens(model, params, tokens, max_length, stride))
-
-    def kernels_vs_plain(params, body: str, head: str, label: str, exact: bool = False):
-        reset_counts()
-        ppl, secs = score(params)
-        launches = kernel_counts()
-        want = {name: 0 for name in launches}
-        want.update({body: 4 * cfg.num_layers * windows, head: windows,
-                     "flash_attention": cfg.num_layers * windows})
-        check(launches == want, f"{label} window scoring launched {launches}, expected {want}")
-        routes = dict(kernel_modules()["flash_attention"].route_launches)
-        check(routes == {"mma": cfg.num_layers * windows, "simt": 0},
-              f"{label} window scoring ran flash attention on the routes {routes}, expected "
-              "every launch on the tensor cores")
-        check_on_mma(f"{label} window scoring")
-        check(math.isfinite(ppl), f"{label} window scoring ppl {ppl} is not finite")
-        with plain_kernels():
-            ppl_plain, secs_plain = score(params)
-        check(kernel_counts() == launches, f"the plain-version {label} scoring run launched "
-                                           "kernels")
-        nll, nll_plain = math.log(ppl), math.log(ppl_plain)
-        tol = MEAN_NLL_REL_TOL * nll_plain
-        print(f"window scoring {label} launches over {windows} windows: {launches}; per window "
-              f"{ {k: v // windows for k, v in launches.items() if v} }", flush=True)
-        print(f"window scoring {label} (Gemma-3-270M bf16, seed {SEED}, {n_tokens} tokens, "
-              f"window {max_length}, stride {stride}) on {card}: ppl kernels {ppl:.4f} "
-              f"({1e3 * secs / windows:.1f} ms/window), plain versions {ppl_plain:.4f} "
-              f"({1e3 * secs_plain / windows:.1f} ms/window); mean NLL kernels vs plain "
-              f"{nll:.6f} vs {nll_plain:.6f}, tol {tol:.2e}", flush=True)
-        check(abs(nll - nll_plain) <= tol,
-              f"{label} window scoring mean NLL: kernels disagree with plain")
-        if exact:
-            # Only the matmul kernels swapped: they agree with their plain
-            # versions bit for bit at M=2048 too, and flash attention runs in
-            # both, so the ppl must be equal.
-            with plain_kernels(only=[kernel_modules()[body], kernel_modules()[head]]):
-                ppl_mm_plain, _ = score(params)
-            print(f"window scoring {label}: ppl with only {body}/{head} plain "
-                  f"{ppl_mm_plain:.4f} vs kernels {ppl:.4f}", flush=True)
-            check(ppl_mm_plain == ppl, f"{label} window scoring: the {body}/{head} kernels "
-                                       "disagree with their plain versions")
-        return launches, ppl
-
-    launches, ppl_q = kernels_vs_plain(qparams, "w4", "w8", "W4+int8 head")
-    launches_a8, ppl_a8 = kernels_vs_plain(a8params, "w4a8", "w8a8", "W4A8+W8A8 head",
-                                           exact=True)
-    ppl_bf16, s_bf16 = score(fparams)
+    n_tokens = 4096
+    windows = 1 + (n_tokens - 2048) // 512
+    tokens = np.random.default_rng(SEED).integers(0, model.cfg.vocab_size, n_tokens)
+    launches, ppl_q = score_windows(model, qparams, tokens, "w4", "w8",
+                                    "Gemma-3-270M bf16 W4+int8 head", card)
+    launches_a8, ppl_a8 = score_windows(model, a8params, tokens, "w4a8", "w8a8",
+                                        "Gemma-3-270M bf16 W4A8+W8A8 head", card, exact=True)
+    ppl_bf16, s_bf16 = timed(lambda: perplexity_from_tokens(model, fparams, tokens, 2048, 512))
     print(f"window scoring ppl on {card}: W4+int8 head {ppl_q:.4f}, W4A8+W8A8 head "
           f"{ppl_a8:.4f}, bf16 {ppl_bf16:.4f} ({1e3 * s_bf16 / windows:.1f} ms/window)",
           flush=True)
@@ -1697,7 +2050,7 @@ def run_decode_scoring(model, qparams, card) -> dict:
     from onnx_quantize_tpu_torch.engine import InferenceEngine
 
     cfg = model.cfg
-    B, T, max_seq = 32, 640, 1024
+    B, T, max_seq = 32, 576, 1024
     ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (B, T))
     forwards = T - 1  # the one-token prefill and T - 2 decode steps
 
@@ -1873,6 +2226,24 @@ def main() -> int:
     del params
     phase_done("4b quantizer algorithms")
 
+    # Phase 4c: QuaRot on Llama-3.2-1B at full width; its kernels at its shapes.
+    llama = run_kernel_checks(gen, LLAMA_KERNEL_CASES)
+    llama["flash_attention"] = run_llama_flash_attention(gen)
+    for kernel, big, what in (("w4", "m2048", "W4, a layer's four body sites"),
+                              ("w4a8", "m4096", "W4A8, a layer's four body sites"),
+                              ("w8", "m2048", "W8, the lm_head"),
+                              ("w8a8", "m2048", "W8A8, the lm_head")):
+        res = llama[kernel]
+        print(f"Llama-3.2-1B {what} (L2 cold) on {card}: "
+              + "; ".join(f"M={M} kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                          f"({r['bound_by']}), plain {r['plain_ms']:.4f}, library "
+                          f"{r['library_ms']:.4f}"
+                          for M, r in ((32, res), (int(big[1:]), res[big])))
+              + f"; max_abs_err {res['max_abs_err']:.3e}", flush=True)
+    for key, n in run_llama_quarot(card).items():
+        launches[key] = launches.get(key, 0) + n
+    phase_done("4c Llama-3.2-1B QuaRot")
+
     # Phase 5: rates.
     # The loop is host-bound and the host is shared, so the arms take turns
     # (the order rotates each round) and each reports the median of 5 samples.
@@ -1904,8 +2275,8 @@ def main() -> int:
 
     # Phase 6: window scoring (the flash-attention path), W4 and A8 models.
     w4_scoring, a8_scoring = run_window_scoring(model, qparams, a8params, fparams, card)
-    launches["flash_attention"] = w4_scoring["flash_attention"]
-    check(a8_scoring["flash_attention"] == launches["flash_attention"],
+    launches["flash_attention"] += w4_scoring["flash_attention"]
+    check(a8_scoring["flash_attention"] == w4_scoring["flash_attention"],
           "the A8 model's window scoring launched another flash-attention count")
     phase_done("6 window scoring")
 
@@ -1913,23 +2284,37 @@ def main() -> int:
     launches["flash_decode"] = run_decode_scoring(model, qparams, card)["flash_decode"]
     phase_done("7 decode scoring")
 
-    # Launches of one A8 site: the activation quantizer alone, and the whole
-    # site through the dispatch (quantizer, pad, kernel, cast), beside the W4
-    # site's, at the qkv shape of a decode step with the engine's baked scales.
+    # Launches of one A8 site: the activation quantizer alone, the zero pad of
+    # its codes to the packed K (640 -> 768), and the whole site through the
+    # dispatch (quantizer, pad, kernel), beside the W4 and Q8 sites', at the
+    # qkv shape of a decode step with the engine's baked scales.
     from onnx_quantize_tpu_torch.engine import prepare_kernel_scales
     from onnx_quantize_tpu_torch.ops import quantized_matmul
+    from onnx_quantize_tpu_torch.ops.kernels import pad_to_multiple
     from onnx_quantize_tpu_torch.ops.kernels.matmul_w4a8 import quantize_activation_int8
 
     x = torch.randn((32, 640), generator=gen, device="cuda").to(torch.bfloat16)
     qkv = {arm: prepare_kernel_scales(params)["layers.0"]["attn"]["_fused_qkv"]["w"]
            for arm, params in (("a8", a8params), ("w4", qparams))}
     q8_q = q8params["layers.0"]["attn"]["q_proj"]["w"]
-    counted = {"activation quantizer": count_launches(lambda: quantize_activation_int8(x)),
-               "A8 qkv site": count_launches(lambda: quantized_matmul(x, qkv["a8"])),
-               "W4 qkv site": count_launches(lambda: quantized_matmul(x, qkv["w4"])),
-               "Q8 q site": count_launches(lambda: quantized_matmul(x, q8_q))}
-    print("device launches per call at M=32, K=640, bf16 x (torch.profiler): "
-          + ", ".join(f"{k} {v[0]} ({', '.join(v[1])})" for k, v in counted.items()), flush=True)
+    x_q, _ = quantize_activation_int8(x)
+    calls = {"activation quantizer": lambda: quantize_activation_int8(x),
+             "A8 input pad": lambda: pad_to_multiple(x_q, 1, 2 * qkv["a8"].data.shape[0]),
+             "A8 qkv site": lambda: quantized_matmul(x, qkv["a8"]),
+             "W4 qkv site": lambda: quantized_matmul(x, qkv["w4"]),
+             "Q8 q site": lambda: quantized_matmul(x, q8_q)}
+    counted = {name: count_graph_nodes(fn) for name, fn in calls.items()}
+    print("device operations per call at M=32, K=640, bf16 x (CUDA graph nodes): "
+          + ", ".join(f"{k} {n} ({', '.join(kinds)})" for k, (n, kinds) in counted.items()),
+          flush=True)
+    print("the same calls through torch.profiler, one session each (not gated): "
+          + ", ".join(f"{k} {count_launches(fn)[0]}" for k, fn in calls.items()), flush=True)
+    for name, (n, _) in counted.items():
+        check(n > 0, f"no device operation captured for the {name}")
+    a8_parts = counted["activation quantizer"][0] + counted["A8 input pad"][0] + 1
+    check(counted["A8 qkv site"][0] == a8_parts,
+          f"the A8 qkv site launched {counted['A8 qkv site'][0]} device operations, expected "
+          f"the quantizer's, the pad's and one W4A8 kernel ({a8_parts})")
     for arm, params, mega in (("W4+int8 head", qparams, False),
                               ("W4A8+W8A8 head", a8params, False),
                               ("Q8+int8 head", q8params, False),

@@ -9,12 +9,10 @@ the config-level checks that tie weights, activations and the QLINEAR format
 together. ``CalibrationParams.backend`` names a torch device where the
 reference names a JAX platform.
 
-The weight algorithms (RTN, GPTQ, HQQ) and the pre-passes (SmoothQuant, AWQ)
-are config dataclasses here, as in the reference; each dispatches to its
-module (``algorithms/``, ``prepasses/``) when it runs. A config given as a
+The weight algorithms (RTN, GPTQ, HQQ) and the pre-passes (SmoothQuant, AWQ,
+QuaRot) are config dataclasses here, as in the reference; each dispatches to
+its module (``algorithms/``, ``prepasses/``) when it runs. A config given as a
 dict picks its class by its ``algorithm_type`` or ``preprocessing_type`` tag.
-QuaRot (``RotateConfig``) raises ``NotImplementedError`` naming the ROADMAP.md
-entry that will port it.
 """
 
 from __future__ import annotations
@@ -35,13 +33,6 @@ if TYPE_CHECKING:
 __all__ = ["QConfig", "QWeightArgs", "QActivationArgs", "CalibrationParams",
            "CalibrationMethod", "AlgorithmConfig", "RTNConfig", "GPTQConfig", "HqqConfig",
            "PreProcessingConfig", "SmoothQuantConfig", "AwqConfig", "RotateConfig"]
-
-_QUAROT = "ROADMAP.md, Queue A item 10.4 (QuaRot)"
-
-
-def _not_ported(what: str, entry: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet; see {entry}.")
-
 
 def _parse_dtype(dtype: QuantType | str) -> QuantType:
     return QuantType.from_string(dtype) if isinstance(dtype, str) else dtype
@@ -358,8 +349,12 @@ class AwqConfig(PreProcessingConfig):
 
 @dataclasses.dataclass(frozen=True)
 class RotateConfig(PreProcessingConfig):
-    """QuaRot's rotation pre-pass, with the reference's fields. Not ported:
-    building one raises."""
+    """QuaRot: the residual-stream rotation (``mode`` "hadamard" or "random",
+    drawn from ``seed``) and the online rotations: ``rotate_qk`` rotates q and
+    k per head after RoPE (the K cache rotated), ``rotate_v`` folds the V
+    head-space rotation (the V cache rotated), ``rotate_down`` mixes the
+    down_proj input in Hadamard blocks of ``online_block``. The rotation
+    needs no calibration; the driver calibrates again after it."""
 
     preprocessing_type: ClassVar[str] = "rotate"
     requires_calibration: ClassVar[bool] = False
@@ -371,7 +366,16 @@ class RotateConfig(PreProcessingConfig):
     online_block: int = 128
 
     def __post_init__(self):
-        raise _not_ported("QuaRot (RotateConfig)", _QUAROT)
+        if self.mode not in ("hadamard", "random"):
+            raise ValueError(f"RotateConfig.mode must be 'hadamard' or 'random', got "
+                             f"{self.mode!r}")
+
+    def build_pass(self, qconfig: "QConfig"):
+        from onnx_quantize_tpu_torch.prepasses.rotate import RotatePass
+
+        return RotatePass(mode=self.mode, seed=self.seed, rotate_qk=self.rotate_qk,
+                          rotate_v=self.rotate_v, rotate_down=self.rotate_down,
+                          online_block=self.online_block)
 
 
 _PREPASSES: dict[str, type[PreProcessingConfig]] = {
@@ -409,8 +413,8 @@ class QConfig:
             (an array for the model's one input, or a dict of input name to
             array); with no data, random data from the model's input specs.
         preprocessors: pre-passes run in order before the weights are
-            quantized (``SmoothQuantConfig``, ``AwqConfig``, or their dicts);
-            ``RotateConfig`` (QuaRot) raises ``NotImplementedError``.
+            quantized (``RotateConfig``, ``SmoothQuantConfig``, ``AwqConfig``, or
+            their dicts).
     """
 
     weights: QWeightArgs | None = None

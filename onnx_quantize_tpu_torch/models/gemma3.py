@@ -1,11 +1,15 @@
-"""Gemma-3 text model, dense path.
+"""Gemma-3 text model, dense path, and the Llama-family decoder it expresses.
 
 Counterpart of ``onnx_quantize_tpu/models/gemma3.py``: every attention and
 MLP projection is a ``Linear`` site; the lm_head is its own site, tied to the
-embedding at init. RMSNorm (1 + w gain, float32), QK-norm, GQA with
-dual-theta RoPE (local layers use ``rope_local_base``), a sliding window on
-all but every ``sliding_pattern``-th layer, GeGLU MLP (tanh gelu), sandwich
-norms, scaled embeddings.
+embedding at init. Gemma-3 semantics by default: RMSNorm (1 + w gain,
+float32), QK-norm, GQA with dual-theta RoPE (local layers use
+``rope_local_base``), a sliding window on all but every
+``sliding_pattern``-th layer, GeGLU MLP (tanh gelu), sandwich norms, scaled
+embeddings. The config's switches flip these to the Llama/Qwen conventions
+(``models/llama.py``): no QK-norm, pre-norm only, SiLU MLP, unscaled
+embeddings, plain-w RMSNorm gain, an optionally untied lm_head, llama3 rope
+scaling, q/k/v biases.
 
 Attention without a cache runs the flash-attention kernel where
 ``Gemma3.use_flash`` allows it (``"auto"``: T >= 512 on CUDA tensors, as the
@@ -13,12 +17,17 @@ reference arms it on its accelerator only) and einsum and softmax otherwise.
 Over an int8/int4 KV cache it is the scale-folded attend that never
 materializes a dequantized cache, or, for the engine's one-token steps with
 ``fused_attention``, the int8 flash-decode kernel. With the engine's
-``mlp_megakernel``, a decode-sized MLP over packed W4 weights runs the fused
-MLP kernel (``ops/kernels/mlp_w4.py``), unless ``down_proj`` carries an input
-prescale (AWQ, SmoothQuant), which the kernel has no hook for. A forward
+``mlp_megakernel``, a decode-sized GeGLU MLP over packed W4 weights runs the
+fused MLP kernel (``ops/kernels/mlp_w4.py``), unless ``down_proj`` carries an
+input prescale (AWQ, SmoothQuant) or an online rotation (QuaRot R4), which
+the kernel has no hook for. QuaRot's online transforms (``prepasses/
+rotate.py``) live on the modules: ``Gemma3Attention.qk_rot`` rotates q and k
+per head after RoPE (so the K cache holds rotated rows) and
+``Gemma3MLP.down_rot`` mixes the down_proj input blockwise; both are plain
+matmuls, as the reference computes them outside any Pallas kernel. A forward
 given a ``Context`` records the calibration taps of the unfused sites.
 Tensor, context and expert parallelism and MoE are not ported yet
-(ROADMAP.md, Queue A items 11 and 14), nor the QuaRot rotations (item 10.4).
+(ROADMAP.md, Queue A items 11 and 14).
 """
 
 from __future__ import annotations
@@ -56,6 +65,19 @@ class Gemma3Config:
     rms_norm_eps: float = 1e-6
     query_pre_attn_scalar: float = 256.0
     dtype: str = "float32"
+    # Architecture switches (defaults: Gemma-3). The Llama/Qwen conventions
+    # (models/llama.py) flip them: no QK-norm, pre-norm only, SiLU MLP,
+    # unscaled embeddings, plain-w RMSNorm gain, optionally untied lm_head,
+    # llama3 rope scaling as (factor, low_freq_factor, high_freq_factor,
+    # original_max_position), q/k/v biases (Qwen-2).
+    use_qk_norm: bool = True
+    sandwich_norms: bool = True
+    mlp_activation: str = "gelu_tanh"  # "gelu_tanh" | "silu"
+    scale_embeddings: bool = True
+    rms_one_plus: bool = True
+    tie_lm_head: bool = True
+    rope_scaling: tuple | None = None
+    attn_bias: bool = False
 
     def is_global_layer(self, idx: int) -> bool:
         return (idx + 1) % self.sliding_pattern == 0
@@ -77,6 +99,19 @@ class Gemma3Config:
 
 
 GEMMA3_270M = Gemma3Config()
+
+
+def _rotation_tensor(module: Module, name: str, like: torch.Tensor) -> torch.Tensor:
+    """The module's online rotation ``name`` (a float64 numpy matrix) in
+    ``like``'s dtype on its device, converted once per stamped matrix, dtype
+    and device, so a decode step copies nothing from the host."""
+    rot = getattr(module, name)
+    cache = module.__dict__.setdefault("_rotation_cache", {})
+    key = (name, like.dtype, like.device)
+    hit = cache.get(key)
+    if hit is None or hit[0] is not rot:
+        hit = cache[key] = (rot, torch.as_tensor(rot, dtype=like.dtype, device=like.device))
+    return hit[1]
 
 
 def _attend(q, k, v, mask, cfg: Gemma3Config, k_scale=None, v_scale=None):
@@ -108,13 +143,21 @@ class Gemma3Attention(Module):
         self.cfg = cfg
         self.layer_idx = layer_idx
         self.is_global = cfg.is_global_layer(layer_idx)
-        d, dt = cfg.hidden_size, cfg.torch_dtype
-        self.q_proj = Linear(d, cfg.num_heads * cfg.head_dim, use_bias=False, dtype=dt)
-        self.k_proj = Linear(d, cfg.num_kv_heads * cfg.head_dim, use_bias=False, dtype=dt)
-        self.v_proj = Linear(d, cfg.num_kv_heads * cfg.head_dim, use_bias=False, dtype=dt)
+        d, dt, ab = cfg.hidden_size, cfg.torch_dtype, cfg.attn_bias
+        self.q_proj = Linear(d, cfg.num_heads * cfg.head_dim, use_bias=ab, dtype=dt)
+        self.k_proj = Linear(d, cfg.num_kv_heads * cfg.head_dim, use_bias=ab, dtype=dt)
+        self.v_proj = Linear(d, cfg.num_kv_heads * cfg.head_dim, use_bias=ab, dtype=dt)
         self.o_proj = Linear(cfg.num_heads * cfg.head_dim, d, use_bias=False, dtype=dt)
-        self.q_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, dtype=dt)
-        self.k_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, dtype=dt)
+        if cfg.use_qk_norm:
+            self.q_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, dtype=dt,
+                                  one_plus=cfg.rms_one_plus)
+            self.k_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, dtype=dt,
+                                  one_plus=cfg.rms_one_plus)
+        # QuaRot R3 (prepasses/rotate.py): a per-head orthogonal (head_dim,
+        # head_dim) float64 matrix applied to q and k after RoPE, before the
+        # cache write. Scores are unchanged ((qR)(kR)^T = qk^T); the cached K
+        # rows are rotated.
+        self.qk_rot: np.ndarray | None = None
 
     def _flash_ok(self, use_flash, x: torch.Tensor) -> bool:
         if use_flash is False:
@@ -143,12 +186,16 @@ class Gemma3Attention(Module):
         q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
         k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        q = self.q_norm(params["q_norm"], q)
-        k = self.k_norm(params["k_norm"], k)
+        if cfg.use_qk_norm:
+            q = self.q_norm(params["q_norm"], q)
+            k = self.k_norm(params["k_norm"], k)
         base = cfg.rope_theta if self.is_global else cfg.rope_local_base
-        q = apply_rope(q, positions, base)
-        k = apply_rope(k, positions, base)
+        q = apply_rope(q, positions, base, scaling=cfg.rope_scaling)
+        k = apply_rope(k, positions, base, scaling=cfg.rope_scaling)
         q = q * (cfg.query_pre_attn_scalar ** -0.5)
+        if self.qk_rot is not None:
+            q = q @ _rotation_tensor(self, "qk_rot", q)
+            k = k @ _rotation_tensor(self, "qk_rot", k)
         return q, k, v
 
     def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto", ctx=None):
@@ -189,20 +236,27 @@ class Gemma3MLP(Module):
     def __init__(self, cfg: Gemma3Config):
         super().__init__()
         d, i, dt = cfg.hidden_size, cfg.intermediate_size, cfg.torch_dtype
+        self.activation = cfg.mlp_activation
         self.gate_proj = Linear(d, i, use_bias=False, dtype=dt)
         self.up_proj = Linear(d, i, use_bias=False, dtype=dt)
         self.down_proj = Linear(i, d, use_bias=False, dtype=dt)
         # Set by the engine's ``mlp_megakernel``: a decode-sized MLP over two
         # packed W4 weights runs as one fused kernel (ops/kernels/mlp_w4.py).
         self.use_megakernel = False
+        # QuaRot R4 (prepasses/rotate.py): a (block, block) float64 Hadamard
+        # applied to each block of the down_proj input (its transpose folded
+        # into down_proj's rows).
+        self.down_rot: np.ndarray | None = None
 
     def forward(self, params, x, ctx=None):
         if "_fused_gate_up" in params:
             w = params["_fused_gate_up"]["w"]
             dn = params["down_proj"].get("w")
-            # The fused kernel has no hook for down_proj's input prescale.
-            if (self.use_megakernel and isinstance(w, QTensor) and isinstance(dn, QTensor)
-                    and "prescale" not in params["down_proj"]):
+            # The fused kernel computes GeGLU only and has no hook for
+            # down_proj's input prescale or the online R4 rotation.
+            if (self.use_megakernel and self.activation == "gelu_tanh"
+                    and isinstance(w, QTensor) and isinstance(dn, QTensor)
+                    and "prescale" not in params["down_proj"] and self.down_rot is None):
                 M = int(np.prod(x.shape[:-1]))
                 if mlp_w4.mlp_w4_eligible(w, dn, M):
                     return mlp_w4.mlp_w4_fused(x, w, dn).to(x.dtype)
@@ -212,29 +266,43 @@ class Gemma3MLP(Module):
         else:
             gate = self.gate_proj(params["gate_proj"], x, ctx=ctx)
             up = self.up_proj(params["up_proj"], x, ctx=ctx)
-        act = torch.nn.functional.gelu(gate, approximate="tanh") * up
+        if self.activation == "silu":
+            act = torch.nn.functional.silu(gate) * up
+        else:
+            act = torch.nn.functional.gelu(gate, approximate="tanh") * up
+        if self.down_rot is not None:
+            r = _rotation_tensor(self, "down_rot", act)
+            shape = act.shape
+            act = (act.reshape(*shape[:-1], shape[-1] // r.shape[0], r.shape[0]) @ r).reshape(shape)
         return self.down_proj(params["down_proj"], act, ctx=ctx)
 
 
 class Gemma3Block(Module):
     def __init__(self, cfg: Gemma3Config, layer_idx: int):
         super().__init__()
-        d, eps, dt = cfg.hidden_size, cfg.rms_norm_eps, cfg.torch_dtype
+        d, eps, dt, one_plus = (cfg.hidden_size, cfg.rms_norm_eps, cfg.torch_dtype,
+                                cfg.rms_one_plus)
         self.attn = Gemma3Attention(cfg, layer_idx)
         self.mlp = Gemma3MLP(cfg)
-        self.input_norm = RMSNorm(d, eps, dtype=dt)
-        self.pre_ffn_norm = RMSNorm(d, eps, dtype=dt)
-        self.post_attn_norm = RMSNorm(d, eps, dtype=dt)
-        self.post_ffn_norm = RMSNorm(d, eps, dtype=dt)
+        self.input_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
+        self.pre_ffn_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
+        self.sandwich = cfg.sandwich_norms
+        if self.sandwich:
+            self.post_attn_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
+            self.post_ffn_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
 
     def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto", ctx=None):
         h = self.input_norm(params["input_norm"], x)
         h = self.attn(params["attn"], h, positions, mask, kv_write=kv_write, use_flash=use_flash,
                       ctx=ctx)
-        x = x + self.post_attn_norm(params["post_attn_norm"], h)
+        if self.sandwich:
+            h = self.post_attn_norm(params["post_attn_norm"], h)
+        x = x + h
         h = self.pre_ffn_norm(params["pre_ffn_norm"], x)
         h = self.mlp(params["mlp"], h, ctx=ctx)
-        return x + self.post_ffn_norm(params["post_ffn_norm"], h)
+        if self.sandwich:
+            h = self.post_ffn_norm(params["post_ffn_norm"], h)
+        return x + h
 
 
 def make_attention_mask(cfg: Gemma3Config, positions, kv_positions, is_global: bool):
@@ -283,7 +351,8 @@ class Gemma3(Module):
         dt = cfg.torch_dtype
         self.embed = Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dt)
         self.layers = torch.nn.ModuleList(Gemma3Block(cfg, i) for i in range(cfg.num_layers))
-        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dt)
+        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dt,
+                                  one_plus=cfg.rms_one_plus)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, use_bias=False, dtype=dt)
         # Attention for the full-sequence (no-cache) path: "auto" (the
         # flash-attention kernel on CUDA at T >= 512), True, or False.
@@ -293,8 +362,9 @@ class Gemma3(Module):
 
     def init(self, generator: torch.Generator) -> dict:
         params = super().init(generator)
-        # Tie lm_head to the embedding (a transposed view of the same memory).
-        params["lm_head"] = {"w": params["embed"]["w"].T}
+        if self.cfg.tie_lm_head:
+            # Tie lm_head to the embedding (a transposed view of the same memory).
+            params["lm_head"] = {"w": params["embed"]["w"].T}
         return params
 
     def hidden_states(self, params, input_ids, positions=None, kv_write=None,
@@ -307,7 +377,9 @@ class Gemma3(Module):
         if kv_positions is None:
             kv_positions = positions
         x = self.embed(params["embed"], input_ids)
-        x = (x * math.sqrt(cfg.hidden_size)).to(cfg.torch_dtype)
+        if cfg.scale_embeddings:
+            x = x * math.sqrt(cfg.hidden_size)
+        x = x.to(cfg.torch_dtype)
         mask_local = make_attention_mask(cfg, positions, kv_positions, is_global=False)
         mask_global = make_attention_mask(cfg, positions, kv_positions, is_global=True)
         for i, block in enumerate(self.layers):

@@ -5,8 +5,11 @@ Counterpart of ``onnx_quantize_tpu/nn/layers.py`` (single-device part).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from onnx_quantize_tpu_torch.core.numerics import true_div
 from onnx_quantize_tpu_torch.nn.module import Module
 
 __all__ = ["Embedding", "RMSNorm", "apply_rope"]
@@ -31,38 +34,53 @@ class Embedding(Module):
 
 
 class RMSNorm(Module):
-    """RMSNorm computed in float32 with the Gemma gain ``1 + w`` (zero-init).
+    """RMSNorm computed in float32.
 
-    The Llama convention (gain ``w``, ones-init) waits with the Llama port
-    (ROADMAP.md, Queue A item 11).
+    ``one_plus=True`` (Gemma convention): gain ``1 + w``, zero-init.
+    ``one_plus=False`` (Llama convention): gain ``w``, ones-init.
     """
 
-    def __init__(self, features: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32,
+                 one_plus: bool = True):
         super().__init__()
         self.features = features
         self.eps = eps
         self.dtype = dtype
+        self.one_plus = one_plus
 
     def init(self, generator: torch.Generator) -> dict:
-        return {"w": torch.zeros((self.features,), dtype=self.dtype, device=generator.device)}
+        fill = torch.zeros if self.one_plus else torch.ones
+        return {"w": fill((self.features,), dtype=self.dtype, device=generator.device)}
 
     def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
         var = x32.square().mean(dim=-1, keepdim=True)
         normed = x32 * torch.rsqrt(var + self.eps)
-        return (normed * (1.0 + params["w"].to(torch.float32))).to(x.dtype)
+        gain = params["w"].to(torch.float32)
+        return (normed * ((1.0 + gain) if self.one_plus else gain)).to(x.dtype)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float,
+               scaling: tuple | None = None) -> torch.Tensor:
     """Rotary position embedding, neox rotate-half convention.
 
-    x: (B, T, num_heads, head_dim); positions: (B, T). The llama3 frequency
-    scaling waits with the Llama port (ROADMAP.md, Queue A item 11).
+    x: (B, T, num_heads, head_dim); positions: (B, T). ``scaling``: llama3
+    frequency scaling as ``(factor, low_freq_factor, high_freq_factor,
+    original_max_position)``: wavelengths beyond ``orig/low`` divide by
+    ``factor``, those below ``orig/high`` are kept, and the band between
+    interpolates (in float32, as the reference).
     """
     head_dim = x.shape[-1]
     half = head_dim // 2
     exponents = torch.arange(half, dtype=torch.float32, device=x.device) * (2.0 / head_dim)
     inv_freq = 1.0 / (base ** exponents)
+    if scaling is not None:
+        factor, low_f, high_f, orig_ctx = scaling
+        # Divisions by device scalars: one IEEE division each, on every device.
+        wavelen = torch.full_like(inv_freq, 2.0 * math.pi) / inv_freq
+        smooth = true_div(torch.full_like(inv_freq, orig_ctx) / wavelen - low_f, high_f - low_f)
+        smooth = smooth.clamp(0.0, 1.0)
+        inv_freq = true_div((1.0 - smooth) * inv_freq, factor) + smooth * inv_freq
     angles = positions[..., None].to(torch.float32) * inv_freq
     cos = torch.cos(angles)[:, :, None, :]  # (B, T, 1, half)
     sin = torch.sin(angles)[:, :, None, :]

@@ -2,9 +2,10 @@
 
 Counterpart of ``onnx_quantize_tpu/prepasses/__init__.py``: calibrate when a
 static activation, the weight algorithm (GPTQ) or a pre-pass needs it, stamp
-the per-site qconfigs, run each pre-pass (SmoothQuant, AWQ) in order, and
-calibrate again when one asks for it (the static ranges and captured inputs
-then see the rescaled sites). QuaRot is not ported (``RotateConfig`` raises).
+the per-site qconfigs, run each pre-pass (QuaRot, SmoothQuant, AWQ) in order,
+and calibrate again when one asks for it (the static ranges and captured
+inputs then see the rotated or rescaled sites). QuaRot must come before
+SmoothQuant: its fold raises on a prescaled reading site.
 """
 
 from __future__ import annotations
@@ -12,14 +13,21 @@ from __future__ import annotations
 import logging
 
 from onnx_quantize_tpu_torch.calibration import calibrate_model
-from onnx_quantize_tpu_torch.core.qconfig import AwqConfig, QConfig, SmoothQuantConfig
+from onnx_quantize_tpu_torch.core.qconfig import (
+    AwqConfig,
+    QConfig,
+    RotateConfig,
+    SmoothQuantConfig,
+)
 from onnx_quantize_tpu_torch.plan import QuantPlan, stamp_qconfig
 from onnx_quantize_tpu_torch.prepasses.awq import AwqPass
+from onnx_quantize_tpu_torch.prepasses.rotate import RotatePass
 from onnx_quantize_tpu_torch.prepasses.smooth_quant import SmoothQuantPass
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["apply_pre_passes", "AwqConfig", "AwqPass", "SmoothQuantConfig", "SmoothQuantPass"]
+__all__ = ["apply_pre_passes", "AwqConfig", "AwqPass", "RotateConfig", "RotatePass",
+           "SmoothQuantConfig", "SmoothQuantPass"]
 
 
 def _needs_calibration(qconfig: QConfig) -> bool:

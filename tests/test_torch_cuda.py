@@ -812,3 +812,94 @@ def test_gptq_and_hqq_sites_on_card_match_cpu():
         return (flat @ w - flat @ dq).norm().item()
 
     assert abs(recon(*gq[1]) - recon(*gq[0])) <= 0.01 * recon(*gq[0])
+
+
+# A tiny Llama-convention model at widths the kernels tile, QuaRot with every
+# online rotation, RTN uint4 g64 on the body and an int8 lm_head.
+TINY_LLAMA = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                  num_heads=4, num_kv_heads=2, head_dim=64)
+QUAROT = dict(rotate_qk=True, rotate_v=True, rotate_down=True, online_block=128, seed=3)
+
+
+def _quarot_llama():
+    from onnx_quantize_tpu_torch.models.llama import Llama, tiny_llama_config
+
+    model = Llama(tiny_llama_config(**TINY_LLAMA))
+    params = model.init(torch.Generator().manual_seed(0))
+    q, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=64),
+        preprocessors=[oqt.RotateConfig(**QUAROT)], ignore=["lm_head"]))
+    q, _ = oqt.quantize(model, q, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    return model, fuse_gemma3_projections(q)
+
+
+LLAMA_IDS = np.random.default_rng(1).integers(0, 512, (4, 15)).astype(np.int32)
+LLAMA_LENGTHS = np.full((4,), 15, np.int32)
+
+
+def _llama_run(model, tree, modules, kv_quant=True):
+    eng = InferenceEngine(model, tree, max_batch=4, max_seq=32, kv_quant=kv_quant)
+    before = [m.launches for m in modules]
+    cache, logits = eng.prefill(eng.new_cache(), LLAMA_IDS, LLAMA_LENGTHS)
+    cache, toks = eng.decode_multi(cache, torch.argmax(logits, -1), steps=6)
+    torch.cuda.synchronize()
+    return logits.float(), toks, tuple(m.launches - b for m, b in zip(modules, before))
+
+
+def test_quarot_llama_w4a8_on_card_equals_plain_and_counts_launches(monkeypatch):
+    """QuaRot W4A8 on a tiny Llama on the card: 4 W4A8 launches a layer and
+    one W8A8 a forward, no weight-only launch; logits and greedy tokens equal
+    to the same engine with both A8 kernels swapped for their plain versions."""
+    _require_cuda()
+    model, tree = _quarot_llama()
+    on_card = tree_map(lambda t: t.to("cuda"), convert_to_w4a8(tree))
+    modules = (matmul_w4a8, matmul_w8a8, matmul_w4, matmul_w8)
+    logits, toks, launched = _llama_run(model, on_card, modules)
+    assert launched == (4 * 2 * 7, 7, 0, 0)
+    monkeypatch.setattr(matmul_w4a8, "w4a8_matmul", matmul_w4a8.w4a8_matmul_plain)
+    monkeypatch.setattr(matmul_w8a8, "w8a8_matmul", matmul_w8a8.w8a8_matmul_plain)
+    plain_logits, plain_toks, plain_launched = _llama_run(model, on_card, modules)
+    assert plain_launched == (0, 0, 0, 0)
+    assert torch.equal(logits, plain_logits) and torch.equal(toks, plain_toks)
+
+
+def test_quarot_llama_w4_on_card_matches_cpu_and_counts_launches():
+    """QuaRot W4 (weight-only) on a tiny float32 Llama over a float KV cache:
+    4 W4 launches a layer and one W8 a forward on the card; logits within
+    1e-4 of the largest of the CPU run (plain versions, the online rotations
+    in float32 on each device), greedy tokens equal. (An int8 cache would turn
+    a last-bit difference between the devices into a code flip, 1/127 of a
+    head's largest |k|: the A8 test holds the card to itself instead.)"""
+    _require_cuda()
+    model, tree = _quarot_llama()
+    modules = (matmul_w4, matmul_w8)
+    cpu_logits, cpu_toks, cpu_launched = _llama_run(model, tree, modules, kv_quant=False)
+    gpu_logits, gpu_toks, gpu_launched = _llama_run(
+        model, tree_map(lambda t: t.to("cuda"), tree), modules, kv_quant=False)
+    assert cpu_launched == (0, 0) and gpu_launched == (4 * 2 * 7, 7)
+    scale = cpu_logits.abs().max().item()
+    assert (gpu_logits.cpu() - cpu_logits).abs().max().item() <= 1e-4 * scale
+    assert torch.equal(gpu_toks.cpu(), cpu_toks)
+
+
+def test_quarot_llama_checkpoint_on_card_is_bit_equal(tmp_path):
+    """The QuaRot W4A8 tree saved from the card and loaded onto it: bit-equal
+    logits once the online rotations are stamped again, other logits without."""
+    _require_cuda()
+    from onnx_quantize_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from onnx_quantize_tpu_torch.prepasses.rotate import stamp_online_rotations
+
+    model, tree = _quarot_llama()
+    on_card = tree_map(lambda t: t.to("cuda"), convert_to_w4a8(tree))
+    modules = (matmul_w4a8,)
+    want, _, _ = _llama_run(model, on_card, modules)
+    save_checkpoint(str(tmp_path), model, on_card)
+    model2, back = load_checkpoint(str(tmp_path), device="cuda")
+    unstamped, _, _ = _llama_run(model2, back, modules)
+    stamp_online_rotations(model2, qk=True, down=True, block=QUAROT["online_block"],
+                           seed=QUAROT["seed"])
+    got, _, _ = _llama_run(model2, back, modules)
+    assert torch.equal(got, want)
+    assert not torch.equal(unstamped, want)

@@ -38,13 +38,16 @@ def test_port_sources_found():
     assert {"engine.py", "gemma3.py", "matmul_w4.py", "matmul_w8.py", "flash_attention.py",
             "flash_decode.py", "perplexity.py", "matmul_w4a8.py", "matmul_w8a8.py",
             "matmul_q8.py", "mlp_w4.py", "chip_smoke.py"} <= names
-    # The calibration and pre-pass subpackages are scanned too.
+    # The calibration and pre-pass subpackages, QuaRot, the Llama and
+    # structured models, packing, checkpoints and the interop are scanned too.
     scanned = {str(p.relative_to(REPO / "onnx_quantize_tpu_torch")) for p in PORT_FILES
                if p.is_relative_to(REPO / "onnx_quantize_tpu_torch")}
     assert {"calibration/__init__.py", "calibration/base.py", "calibration/calibrate.py",
             "calibration/factory.py", "calibration/minmax.py", "calibration/percentile.py",
             "calibration/entropy.py", "algorithms/gptq.py", "algorithms/hqq.py",
-            "prepasses/__init__.py", "prepasses/awq.py", "prepasses/smooth_quant.py"} <= scanned
+            "prepasses/__init__.py", "prepasses/awq.py", "prepasses/smooth_quant.py",
+            "prepasses/rotate.py", "models/llama.py", "models/structured.py", "core/pack.py",
+            "checkpoint.py", "interop.py"} <= scanned
 
 
 def test_importing_the_port_builds_no_kernel():

@@ -1,6 +1,8 @@
 """The PyTorch port's qparam math against the JAX package: bit-equal codes,
 scales and zero points from the same float32 weights."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -120,8 +122,8 @@ def test_quantize_tree_bit_equal_with_group_fallback():
 
 
 @pytest.mark.parametrize("kwargs", [
-    # QuaRot is the one pre-pass not ported (ROADMAP.md, Queue A item 10.4),
-    # alone, after another pre-pass, or with its online rotations.
+    # QuaRot's config forms (ported now): alone with static-capable inputs,
+    # after another pre-pass, and with an online rotation.
     dict(weights=QWeightArgs(dtype="int8", group_size=-1),
          input_activations=QActivationArgs(dtype="uint8"),
          preprocessors=[{"preprocessing_type": "rotate"}]),
@@ -131,8 +133,20 @@ def test_quantize_tree_bit_equal_with_group_fallback():
          preprocessors=[{"preprocessing_type": "rotate", "rotate_down": True}]),
 ])
 def test_off_slice_config_raises_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 10.4"):
-        QConfig(**kwargs)
+    """QuaRot is ported: each form resolves to the pre-pass configs the JAX
+    package resolves, with the same fields, and each builds its pass."""
+    qconfig = QConfig(**kwargs)
+    jqconfig = oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=128),
+        preprocessors=[p if isinstance(p, dict) else oqt.SmoothQuantConfig()
+                       for p in kwargs["preprocessors"]])
+    ours, theirs = qconfig.preprocessors, jqconfig.preprocessors
+    assert [type(p).__name__ for p in ours] == [type(p).__name__ for p in theirs]
+    for mine, jax_cfg in zip(ours, theirs):
+        fields = {f.name: getattr(mine, f.name) for f in dataclasses.fields(mine)}
+        assert fields == {k: getattr(jax_cfg, k) for k in fields}
+        assert (type(mine.build_pass(qconfig)).__name__
+                == type(jax_cfg.build_pass(jqconfig)).__name__)
 
 
 @pytest.mark.parametrize("kwargs", [dict(algorithm="gptq"), dict(algorithm="hqq"),
