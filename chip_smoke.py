@@ -127,11 +127,32 @@ Phases (any failed check exits non-zero; each prints its seconds):
    every layer of every one-token forward, past the 512-token window).
    Checks the launch counts and the NLL against ``fused_attention=False``;
    prints ``score_ppl`` for the float, int8 and int4 caches and steps/s.
+8. Launch counts and profiles (below).
+9. Serving: the continuous-batching scheduler at the JAX serving probe's
+   load (``scripts/tpu_bench_serving.py:51-90``: 128 requests from seed 0,
+   prompts of 32-128 ids, budgets of 48-96; B=32, max_seq 512, int8 KV) over
+   phase 4's trees. (a) The W4 tree, all 128 requests, chunk 16, narrow
+   admission, pipeline 1 then 4: every request done, each output its
+   budget's length (or ended on EOS or max_seq), ids in range,
+   ``stats["emitted"]`` equal to the tokens handed out, one W8 and 72 W4
+   launches for every forward (the decode steps and one admission prefill a
+   round that admits) and no other; 16 requests' prompt + output fed back
+   through the decode path at M=32, each served token's logit within 5% of
+   the row's largest |logit| of the largest. (b) The A8 tree, the first 32
+   requests (8 sampled at temperature 0.8, top-k 50, top-p 0.95; 4 with (a)'s
+   most frequent token as EOS; 8 behind a registered 64-token prefix), chunk
+   8, pipeline 2: W4A8 and W8A8 launched, every output and the stats equal
+   to the run with both kernels swapped for their plain versions, from the
+   same seed. (c) (a)'s tree with ``fused_attention=True`` on the first 32
+   requests: 18 flash-decode launches a decode step, and (a)'s
+   teacher-forced check. Prints each arm's generated and total tok/s beside
+   phase 5's fixed-batch W4 rate, occupancy, rounds and admission rounds,
+   latency percentiles and seconds.
 
-The run ends by counting the device operations (as the nodes of a CUDA graph
+Phase 8 counts the device operations (as the nodes of a CUDA graph
 captured from one call) of the activation quantizer, the zero pad of its
 codes and one whole A8 site (which must be their sum plus one W4A8 kernel),
-a W4 and a Q8 site (each non-zero), and by profiling decode steps of the W4,
+a W4 and a Q8 site (each non-zero), and profiles decode steps of the W4,
 A8, Q8 and MLP arms and one scoring window of the W4 model (``torch.profiler``: launches, device
 busy time, idle share, the matmul kernels' share). The line
 before the last is a JSON object
@@ -2088,6 +2109,247 @@ def run_decode_scoring(model, qparams, card) -> dict:
     return launches
 
 
+# -- phase 9: continuous-batching serving -------------------------------------------
+
+SERVE_BATCH, SERVE_MAX_SEQ = 32, 512
+# Phase 4's W4 bar read as a margin: in the teacher-forced decode a served
+# token's logit lies at most 5% of the row's largest |logit| below the row's
+# largest logit. The serving path and the teacher-forced one round bf16 at
+# other shapes; a token read from the wrong slot's or position's KV lies far
+# below that.
+SERVE_MARGIN = 0.05
+
+
+def serving_load(vocab: int, n: int = 128) -> list[tuple[list[int], int]]:
+    """(prompt, budget) pairs of the JAX serving probe
+    (``scripts/tpu_bench_serving.py:51-90``): prompts of 32-128 ids in
+    [1, vocab), budgets of 48-96, drawn in its order from seed 0."""
+    rng = np.random.default_rng(SEED)
+    return [(rng.integers(1, vocab, size=int(rng.integers(32, 129))).tolist(),
+             int(rng.integers(48, 97))) for _ in range(n)]
+
+
+def serve_engine(model, params, fused: bool = False):
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    return InferenceEngine(model, params, max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                           kv_quant=True, dtype=torch.bfloat16, fused_attention=fused)
+
+
+def serve(engine, reqs, chunk: int, pipeline: int, prefix=None):
+    """Every (prompt, submit kwargs) request through a fresh scheduler whose
+    generator is seeded with 0; returns (requests, scheduler, seconds)."""
+    from onnx_quantize_tpu_torch.engine import ContinuousBatchingScheduler
+
+    sched = ContinuousBatchingScheduler(
+        engine, generator=torch.Generator(device="cuda").manual_seed(SEED), chunk=chunk,
+        pipeline=pipeline)
+    if prefix is not None:
+        sched.register_prefix(prefix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [sched.submit(prompt, **kw) for prompt, kw in reqs]
+    finished = sched.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(finished) == len(reqs) and all(r.done for r in handles),
+          "serving: a request did not finish")
+    return handles, sched, seconds
+
+
+def check_served(label: str, handles, vocab: int, prefix_len: int = 0) -> None:
+    """Every output in [0, V), of its budget's length unless it ends on its
+    EOS or its sequence reached max_seq."""
+    for r in handles:
+        total = len(r.prompt) + (prefix_len if r.use_prefix else 0)
+        check(all(0 <= t < vocab for t in r.output), f"{label}: a token out of range")
+        ended = (r.eos_token_id is not None and r.output[-1] == r.eos_token_id
+                 or total + len(r.output) - 1 >= SERVE_MAX_SEQ)
+        check(len(r.output) == r.max_new_tokens or (ended and len(r.output) < r.max_new_tokens),
+              f"{label}: request {r.request_id} emitted {len(r.output)} of {r.max_new_tokens}")
+
+
+def serving_figures(label: str, handles, sched, seconds: float, card: str,
+                    prefix_len: int = 0) -> float:
+    """Prints the arm's rates, occupancy, rounds and latencies; returns its
+    generated tok/s."""
+    generated = sum(len(r.output) for r in handles)
+    ingested = sum(len(r.prompt) + (prefix_len if r.use_prefix else 0) for r in handles)
+    stats = sched.stats
+
+    def pct(values, q):
+        return float(np.percentile(values, q)) * 1e3
+
+    service = [r.t_finished - r.t_admitted for r in handles]
+    total = [r.t_finished - r.t_submitted for r in handles]
+    print(f"serving {label} on {card}: {len(handles)} requests, {seconds:.2f} s, generated "
+          f"{generated} tok/s {generated / seconds:.1f}, total (generated + {ingested} prompt) "
+          f"tok/s {(generated + ingested) / seconds:.1f}, occupancy "
+          f"{stats['emitted'] / max(stats['slot_steps'], 1):.4f} ({stats['emitted']} of "
+          f"{stats['slot_steps']} slot-steps), rounds {stats['rounds']}, admission rounds "
+          f"{stats['admit_rounds']} (planned admissions {stats['planned_admits']}), "
+          f"t_finished - t_admitted p50 {pct(service, 50):.1f} ms p99 {pct(service, 99):.1f}, "
+          f"t_finished - t_submitted p50 {pct(total, 50):.1f} ms p99 {pct(total, 99):.1f}",
+          flush=True)
+    return generated / seconds
+
+
+def teacher_forced(engine, handles) -> tuple[float, float, int]:
+    """Feeds up to max_batch requests' prompt + output through the engine's
+    decode path at M = max_batch (a one-token prefill, then one gold token a
+    step, as ``_score`` does). For each served token: the row's largest
+    logit minus the token's, over the row's largest |logit|. Returns (share
+    of served tokens that are exactly the argmax, worst margin, tokens)."""
+    B = engine.max_batch
+    rows = [r.prompt + r.output for r in handles]
+    T = max(len(r) for r in rows)
+    ids = np.zeros((B, T), np.int64)
+    lengths = np.zeros((B,), np.int32)
+    first = np.zeros((B,), np.int32)  # the first served position of each row
+    for i, (r, row) in enumerate(zip(handles, rows)):
+        ids[i, :len(row)] = row
+        lengths[i], first[i] = len(row), len(r.prompt)
+    ids_t = torch.from_numpy(ids).cuda()
+    live = torch.from_numpy(np.arange(T)[None, :] < lengths[:, None]).cuda()
+    first_t, lengths_t = torch.from_numpy(first).cuda(), torch.from_numpy(lengths).cuda()
+    worst = torch.zeros((B,), dtype=torch.float32, device="cuda")
+    exact = torch.zeros((B,), dtype=torch.int64, device="cuda")
+    count = torch.zeros((B,), dtype=torch.int64, device="cuda")
+
+    def score(logits, j):  # logits that predict position j
+        nonlocal worst, exact, count
+        lf = logits.float()
+        top = lf.max(dim=-1).values
+        tok = lf.gather(1, ids_t[:, j:j + 1])[:, 0]
+        valid = (j >= first_t) & (j < lengths_t)
+        worst = torch.where(valid, torch.maximum(worst, (top - tok) / lf.abs().max(dim=-1).values),
+                            worst)
+        exact += (valid & (tok == top)).long()
+        count += valid.long()
+
+    cache, logits = engine.prefill(engine.new_cache(), ids[:, :1], np.minimum(lengths, 1))
+    score(logits, 1)
+    for i in range(1, T - 1):
+        cache, logits = engine.decode(cache, ids_t[:, i], active=live[:, i])
+        score(logits, i + 1)
+    n = int(count.sum())
+    return int(exact.sum()) / n, float(worst.max()), n
+
+
+def run_serving(model, qparams, a8params, card: str, fixed_rate: float) -> dict:
+    """Phase 9: the scheduler over phase 4's trees at the JAX serving probe's
+    load. Returns the launches of its three arms' serving runs."""
+    from onnx_quantize_tpu_torch.engine import SamplingParams
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4a8, matmul_w8a8
+
+    cfg = model.cfg
+    V, per_forward = cfg.vocab_size, 4 * cfg.num_layers
+    load = serving_load(V)
+    launches = {name: 0 for name in kernel_modules()}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        return out, counts
+
+    # (a) the W4 tree, all 128 requests, chunk 16, narrow admission on.
+    engine = serve_engine(model, qparams)
+    reqs = [(prompt, dict(max_new_tokens=m)) for prompt, m in load]
+    outputs = {}
+    for pipeline in (1, 4):
+        (handles, sched, seconds), counts = counted(lambda: serve(engine, reqs, 16, pipeline))
+        label = f"(a) W4 body + W8 head, chunk 16, pipeline {pipeline}"
+        check_served(label, handles, V)
+        stats = sched.stats
+        check(stats["emitted"] == sum(len(r.output) for r in handles),
+              f"{label}: stats count {stats['emitted']} emitted tokens, the requests hold "
+              f"{sum(len(r.output) for r in handles)}")
+        # Every forward ran the kernels: one W8 a forward (the decode steps
+        # and one admission prefill a round that admits), 72 W4 beside it.
+        forwards = stats["rounds"] * 16 + stats["admit_rounds"]
+        check(counts["w8"] == forwards and counts["w4"] == per_forward * forwards
+              and sum(counts.values()) == counts["w4"] + counts["w8"],
+              f"{label} launched {counts}, expected {forwards} W8 and {per_forward * forwards} "
+              "W4 and no other")
+        rate = serving_figures(label, handles, sched, seconds, card)
+        print(f"serving {label}: launches {counts}; fixed-batch decode (phase 5, W4, B=32) "
+              f"{fixed_rate:.1f} tok/s in the same run, serving/fixed "
+              f"{rate / fixed_rate:.3f}", flush=True)
+        outputs[pipeline] = [r.output for r in handles]
+    same = np.mean([a == b for a, b in zip(outputs[1], outputs[4])])
+    print(f"serving (a): outputs equal between pipeline 1 and 4 (not gated: the admission "
+          f"forwards' shapes, and so the W4 launch plans, differ): {same:.4f}", flush=True)
+    share, worst, n = teacher_forced(engine, handles[:16])
+    print(f"serving (a) teacher-forced, 16 requests, {n} served tokens: exactly the argmax "
+          f"{share:.4f}, worst margin {worst:.4f} of the largest |logit| (bar {SERVE_MARGIN})",
+          flush=True)
+    check(worst <= SERVE_MARGIN, f"serving (a): a served token {worst:.4f} of the largest "
+                                 "|logit| below its row's largest in the teacher-forced decode")
+    words = np.unique(np.concatenate([np.asarray(o) for o in outputs[4]]), return_counts=True)
+    common = int(words[0][np.argmax(words[1])])
+
+    # (b) the A8 tree, 32 requests: 8 sampled, 4 with arm (a)'s most
+    # frequent token as EOS, 8 behind a registered 64-token prefix; with the
+    # kernels, then with their plain versions from the same seed.
+    prefix = np.random.default_rng(SEED + 2).integers(1, V, 64).tolist()
+    reqs = []
+    for i, (prompt, m) in enumerate(load[:32]):
+        kw = dict(max_new_tokens=m)
+        if i < 8:
+            kw["sampling"] = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+        elif i < 12:
+            kw["eos_token_id"] = common
+        elif i < 20:
+            kw["use_prefix"] = True
+        reqs.append((prompt, kw))
+    engine = serve_engine(model, a8params)
+    (handles, sched, seconds), counts = counted(lambda: serve(engine, reqs, 8, 2, prefix))
+    label = "(b) W4A8 body + W8A8 head, chunk 8, pipeline 2"
+    check_served(label, handles, V, prefix_len=64)
+    check(counts["w4a8"] > 0 and counts["w8a8"] > 0
+          and sum(counts.values()) == counts["w4a8"] + counts["w8a8"],
+          f"{label} launched {counts}")
+    serving_figures(label, handles, sched, seconds, card, prefix_len=64)
+    reset_counts()
+    with plain_kernels([matmul_w4a8, matmul_w8a8]):
+        plain, plain_sched, plain_s = serve(engine, reqs, 8, 2, prefix)
+    torch.cuda.synchronize()
+    check(sum(kernel_counts().values()) == 0, f"{label}: the plain run launched kernels")
+    print(f"serving {label}: launches {counts}; plain versions {plain_s:.2f} s", flush=True)
+    check([r.output for r in handles] == [r.output for r in plain]
+          and sched.stats == plain_sched.stats,
+          f"{label}: outputs or stats differ from the plain versions' "
+          f"({sched.stats} vs {plain_sched.stats})")
+    froze = sum(1 for r in handles[8:12] if r.output[-1] == common
+                and len(r.output) < r.max_new_tokens)
+    print(f"serving {label}: every request's output and the stats equal the plain run's; "
+          f"{froze} of 4 froze on EOS {common} (not gated)", flush=True)
+
+    # (c) flash decode in serving: arm (a)'s tree with fused_attention=True,
+    # 32 requests, slots at ragged lengths.
+    engine = serve_engine(model, qparams, fused=True)
+    reqs = [(prompt, dict(max_new_tokens=m)) for prompt, m in load[:32]]
+    (handles, sched, seconds), counts = counted(lambda: serve(engine, reqs, 16, 4))
+    label = "(c) W4 body + W8 head with flash decode, chunk 16, pipeline 4"
+    check_served(label, handles, V)
+    steps = sched.stats["rounds"] * 16
+    check(counts["flash_decode"] == cfg.num_layers * steps and counts["w4"] > 0
+          and counts["w8"] > 0, f"{label} launched {counts}, expected "
+                                f"{cfg.num_layers * steps} flash decode")
+    serving_figures(label, handles, sched, seconds, card)
+    share, worst, n = teacher_forced(engine, handles[:16])
+    print(f"serving {label}: launches {counts}; teacher-forced, 16 requests, {n} served tokens: "
+          f"exactly the argmax {share:.4f}, worst margin {worst:.4f} (bar {SERVE_MARGIN})",
+          flush=True)
+    check(worst <= SERVE_MARGIN, f"serving (c): a served token {worst:.4f} of the largest "
+                                 "|logit| below its row's largest in the teacher-forced decode")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2333,6 +2595,11 @@ def main() -> int:
           f"{prof['flash_attention_ms']:.3f}), wall {prof['wall_ms']:.3f} ms, idle share "
           f"{prof['idle_share']:.3f}", flush=True)
     phase_done("8 launch counts")
+
+    # Phase 9: continuous-batching serving at the JAX serving probe's load.
+    for key, n in run_serving(model, qparams, a8params, card, rate_q).items():
+        launches[key] += n
+    phase_done("9 serving")
 
     # name in the kernels line, CUDA source, replaced TPU kernel.
     sources = {

@@ -1,6 +1,13 @@
 from onnx_quantize_tpu_torch.engine.engine import InferenceEngine, prepare_kernel_scales
 from onnx_quantize_tpu_torch.engine.kv_cache import KVCacheConfig, init_cache
-from onnx_quantize_tpu_torch.engine.sampling import SamplingParams, sample
+from onnx_quantize_tpu_torch.engine.sampling import (
+    SamplingParams,
+    batch_sampling_arrays,
+    sample,
+    sample_batch,
+)
+from onnx_quantize_tpu_torch.engine.scheduler import ContinuousBatchingScheduler, Request
 
 __all__ = ["InferenceEngine", "prepare_kernel_scales", "KVCacheConfig", "init_cache",
-           "SamplingParams", "sample"]
+           "SamplingParams", "sample", "sample_batch", "batch_sampling_arrays",
+           "ContinuousBatchingScheduler", "Request"]

@@ -8,6 +8,13 @@ the port runs eagerly: ``decode_multi`` is a Python loop under
 ``torch.inference_mode()`` whose tokens stay on the device until the end.
 Capturing the decode step in a CUDA graph is later work.
 
+``serve_chunk`` is one round of the continuous-batching scheduler
+(``engine/scheduler.py``): an optional admission (a masked prefill of the
+whole batch, or a narrow one of the admitted rows only), per-slot first-token
+sampling, then ``steps`` decode steps with per-slot sampling, EOS, budget and
+capacity freezes. It is an eager loop too, with no host sync inside it, and
+returns one packed int32 blob that stays on the device.
+
 Works with float or quantized params (the Linear sites dispatch to the
 Hopper kernels on CUDA) and a float, int8 or int4 KV cache. With
 ``fused_attention=True`` every one-token forward over the int8 cache runs
@@ -26,12 +33,14 @@ import torch
 
 from onnx_quantize_tpu_torch.engine.kv_cache import (
     KVCacheConfig,
+    admitted_rows,
     init_cache,
     read_kv,
     read_kv_quantized,
     write_kv,
+    write_kv_rows,
 )
-from onnx_quantize_tpu_torch.engine.sampling import SamplingParams, sample
+from onnx_quantize_tpu_torch.engine.sampling import SamplingParams, sample, sample_batch
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
 from onnx_quantize_tpu_torch.utils import tree_map
 
@@ -137,15 +146,23 @@ class InferenceEngine:
 
     # -- model forward with cache ---------------------------------------
 
-    def _forward(self, cache, ids, positions, kv_positions, write_mask, last_lengths=None):
+    def _forward(self, cache, ids, positions, kv_positions, write_mask, last_lengths=None,
+                 kv_write=None):
+        """The model over ``ids`` (B, T) with the cache: by default each
+        layer's new K/V rows go into ``cache`` where ``write_mask`` (B, n) is
+        set, for the leading n <= T columns, and attention reads the whole
+        cache; ``kv_write`` replaces that writer."""
         # The flash-decode kernel serves one-token forwards only.
         fused = self._fused_attn and ids.shape[1] == 1
 
         def kv_write_fn(layer, k, v):
-            write_kv(cache, layer, k, v, positions, write_mask)
+            n = write_mask.shape[1]
+            write_kv(cache, layer, k[:, :n], v[:, :n], positions[:, :n], write_mask)
             if self.cache_cfg.quantized:
                 return read_kv_quantized(cache, layer, use_kernel=fused)
             return read_kv(cache, layer, dtype=self.dtype)
+
+        kv_write_fn = kv_write or kv_write_fn
 
         model, params = self.model, self.params
         for block in getattr(model, "layers", []):
@@ -158,8 +175,10 @@ class InferenceEngine:
         # at (B, 1).
         hidden = model.hidden_states(params, ids, positions=positions, kv_write=kv_write_fn,
                                      kv_positions=kv_positions)
-        # A length-0 row (an unused slot) gathers position 0; its logits are unused.
-        idx = (last_lengths - 1).clamp(min=0).long()[:, None, None].expand(
+        # A row outside the written slots (length 0, or an in-flight
+        # sequence's length past T) gathers a clamped position; its logits
+        # are unused.
+        idx = (last_lengths - 1).clamp(0, hidden.shape[1] - 1).long()[:, None, None].expand(
             -1, 1, hidden.shape[-1])
         h_last = torch.gather(hidden, 1, idx)  # (B, 1, H)
         return model.lm_head(params["lm_head"], h_last)
@@ -183,33 +202,102 @@ class InferenceEngine:
     # -- public API -----------------------------------------------------
 
     @torch.inference_mode()
-    def prefill(self, cache: dict, ids, lengths, slot_mask=None):
+    def prefill(self, cache: dict, ids, lengths, slot_mask=None, with_tokens: bool = False,
+                prefix: dict | None = None):
         """Prefill ``ids`` (B, T_pad) with true ``lengths`` (B,) into ``cache``
         (updated in place); returns (cache, last-token logits (B, V)).
 
         ``slot_mask`` (B,) selects the slots written (default: all); the other
         slots keep their cache rows and lengths, and their logits are
-        meaningless.
+        meaningless. ``with_tokens=True`` also returns the greedy first tokens
+        (B,) int32, on the device. With ``prefix`` (a :meth:`snapshot_prefix`
+        dict of P rows), ``ids`` are the suffix tokens and ``lengths`` the
+        totals (P + suffix): the prefix rows go into rows [0, P) of the
+        selected slots only, and only the suffix runs, at positions P..P+T-1.
         """
         ids = self._token_ids(ids)
         B, T = ids.shape
+        P = 0 if prefix is None else prefix["k"].shape[1]
         if T > self.max_seq:
             raise ValueError(f"prompt length {T} exceeds max_seq={self.max_seq}")
-        if not isinstance(lengths, torch.Tensor) and not (
-                (np.asarray(lengths) >= 0).all() and (np.asarray(lengths) <= T).all()):
-            raise ValueError(f"lengths must lie in [0, {T}]")
+        top = min(P + T, self.max_seq)
+        if not isinstance(lengths, torch.Tensor):
+            host = np.asarray(lengths)
+            sel = (np.ones(B, bool) if slot_mask is None or isinstance(slot_mask, torch.Tensor)
+                   else np.asarray(slot_mask, bool))
+            if not ((host[sel] >= P) & (host[sel] <= top)).all():
+                raise ValueError(f"lengths must lie in [{P}, {top}]")
         lengths = self._tensor(lengths, torch.int32)
         if slot_mask is None:
             slot_mask = torch.ones((B,), dtype=torch.bool, device=self.device)
         else:
             slot_mask = self._tensor(slot_mask, torch.bool)
-        positions = torch.arange(T, dtype=torch.int32, device=self.device)[None, :].expand(B, T)
+        if prefix is not None:
+            # The cache is written in place, so the prefix goes only into the
+            # selected slots: every other slot may hold an in-flight sequence.
+            for key, rows in prefix.items():
+                region = cache[key][:, :, :P]
+                sel = slot_mask.reshape(1, B, *([1] * (region.ndim - 2)))
+                region.copy_(torch.where(sel, rows[:, None].to(region.dtype), region))
+        positions = P + torch.arange(T, dtype=torch.int32, device=self.device)[None, :].expand(B, T)
         slot = torch.arange(self.max_seq, dtype=torch.int32, device=self.device)[None, :]
         kv_positions = torch.where(slot < lengths[:, None], slot, _FAR)
+        # A suffix bucket may run past max_seq; those padding columns are not
+        # written (the JAX scatter drops them). The hidden states cover the
+        # T suffix positions: the last-token gather is suffix-local.
         logits = self._forward(cache, ids, positions, kv_positions,
-                               slot_mask[:, None].expand(B, T), last_lengths=lengths)[:, 0]
+                               slot_mask[:, None].expand(B, top - P),
+                               last_lengths=lengths - P)[:, 0]
         cache["lengths"] = torch.where(slot_mask, lengths, cache["lengths"])
+        if with_tokens:
+            return cache, logits, torch.argmax(logits, dim=-1).to(torch.int32)
         return cache, logits
+
+    def snapshot_prefix(self, cache: dict, row: int, length: int) -> dict:
+        """Rows [0, length) of slot ``row`` as a reusable KV prefix: (L, length,
+        H, D) K/V (and (L, length, H) scales), copies on the device, for
+        :meth:`prefill`'s ``prefix``."""
+        keys = ["k", "v"] + (["k_scale", "v_scale"] if self.cache_cfg.quantized else [])
+        return {key: cache[key][:, row, :length].clone() for key in keys}
+
+    @torch.inference_mode()
+    def _admit_prefill(self, cache: dict, ids, lengths, slots):
+        """Narrow admission prefill: the forward runs over the A admitted rows
+        only, at (A, T_pad), where the masked prefill runs all B.
+
+        ``ids`` (A, T_pad), ``lengths`` (A,) and ``slots`` (A,) are host
+        arrays; the bucket's padding rows carry ``slots = max_batch`` and are
+        dropped on the host (:func:`admitted_rows`): they touch no cache row,
+        length or token. Each layer's K/V rows go into their slots, and the
+        admission's attention reads the fresh rows and nothing of the wide
+        cache (the masked path's extra keys add exact zeros to its softmax).
+
+        Returns (logits (A, V), greedy (A,) int32, rows, slot_index): the
+        last two are the real rows and their slots, as device index tensors.
+        """
+        ids = self._token_ids(ids)
+        A, T = ids.shape
+        if T > self.max_seq:
+            raise ValueError(f"prompt length {T} exceeds max_seq={self.max_seq}")
+        host = np.asarray(lengths)
+        if not ((host >= 1) & (host <= T)).all():
+            raise ValueError(f"lengths must lie in [1, {T}]")
+        rows, slot_index = admitted_rows(slots, self.max_batch, self.device)
+        lengths = self._tensor(lengths, torch.int32)
+        positions = torch.arange(T, dtype=torch.int32, device=self.device)[None, :].expand(A, T)
+        kv_positions = torch.where(positions < lengths[:, None], positions, _FAR)
+
+        def kv_write(layer, k, v):
+            fresh = write_kv_rows(cache, layer, k, v, positions, rows, slot_index)
+            if self.cache_cfg.quantized:
+                return fresh
+            # What the masked path reads back: the cache's dtype, then the engine's.
+            return tuple(t.to(self.cache_cfg.dtype).to(self.dtype) for t in fresh)
+
+        logits = self._forward(cache, ids, positions, kv_positions, None, last_lengths=lengths,
+                               kv_write=kv_write)[:, 0]
+        cache["lengths"] = cache["lengths"].index_put((slot_index,), lengths[rows])
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32), rows, slot_index
 
     def decode(self, cache: dict, tokens, active=None):
         """One decode step for every active slot; returns (cache, logits (B, V))."""
@@ -315,6 +403,103 @@ class InferenceEngine:
         """Perplexity over ``ids`` via :meth:`score_nll` (decode-path KV)."""
         nll, cnt = self.score_nll(ids, lengths)
         return float(np.exp(nll.sum() / max(int(cnt.sum()), 1)))
+
+    @torch.inference_mode()
+    def serve_chunk(self, cache: dict, tokens, steps: int, *, eos, sampling_arrays,
+                    variant: tuple[bool, bool, bool], generator: torch.Generator | None = None,
+                    active=None, budgets=None, carry=None, admit_ids=None, admit_lengths=None,
+                    admit_mask=None, admit_slots=None, admit_budgets=None):
+        """One serving round: an optional admission, first-token sampling,
+        then ``steps`` decode steps with per-slot sampling, EOS, budgets and
+        capacity. An eager loop with no host sync inside it.
+
+        ``sampling_arrays`` = (temps, top_ks, top_ps) per slot (build with
+        ``sampling.batch_sampling_arrays``), ``variant`` their static flags
+        (need_temp, need_topk, need_topp); ``eos`` (B,) EOS ids, -1 for none.
+        The entry state comes from host arrays (``tokens``, ``active``,
+        ``budgets``: remaining tokens per slot, the admission's first token
+        counted against it) or from the previous round's ``carry``, which
+        stays on the device, so a continuation round is queued before the
+        previous round's blob is read.
+
+        Admission: ``admit_ids`` (B, T_pad) with ``admit_lengths`` (B,) and
+        ``admit_mask`` (B,) runs the masked prefill of the whole batch;
+        ``admit_ids`` (A, T_pad) with ``admit_lengths`` (A,) and
+        ``admit_slots`` (A,) the narrow one (padding rows carry max_batch).
+        ``admit_budgets`` (B,) overrides the admitted slots' budgets (a
+        planned admission into a slot whose old budget is in the carry).
+
+        A slot freezes (no KV write, no length advance, its output padded
+        with its EOS id or its last token) when it emits EOS, spends its
+        budget or reaches max_seq. Returns ``(cache, blob, carry)``: blob
+        (B, steps + 4) int32 on the device with columns ``[t0, out..., emitted,
+        done, lengths]`` (``emitted`` counts the valid leading ``out``
+        tokens), carry = (tokens, done, budgets) after the round.
+        """
+        need_temp, need_topk, need_topp = variant
+        temps, top_ks, top_ps = sampling_arrays
+        temps = self._tensor(temps, torch.float32)
+        top_ks = self._tensor(top_ks, torch.int32)
+        top_ps = self._tensor(top_ps, torch.float32)
+
+        def samp(logits):
+            return sample_batch(logits, generator, temps, top_ks, top_ps, need_temp=need_temp,
+                                need_topk=need_topk, need_topp=need_topp)
+
+        if carry is not None:
+            toks, done, budgets = carry
+        else:
+            toks = self._token_ids(tokens)
+            done = ~self._tensor(active, torch.bool)
+            budgets = self._tensor(budgets, torch.int32)
+        eos = self._tensor(eos, torch.int64)
+        eos_on = eos >= 0
+        B = toks.shape[0]
+        if admit_ids is not None:
+            if admit_slots is not None:
+                logits_a, greedy_a, rows, slot_index = self._admit_prefill(
+                    cache, admit_ids, admit_lengths, admit_slots)
+                mask = torch.zeros((B,), dtype=torch.bool, device=self.device).index_fill_(
+                    0, slot_index, True)
+                if need_temp:
+                    # The noise is drawn per position of the (B, V) matrix, so
+                    # the A rows go into their slots' rows first: the sampled
+                    # tokens then equal the masked path's.
+                    last = torch.zeros((B, logits_a.shape[-1]), dtype=logits_a.dtype,
+                                       device=self.device).index_put((slot_index,), logits_a[rows])
+                    t0 = samp(last)
+                else:
+                    t0 = toks.index_put((slot_index,), greedy_a[rows].to(toks.dtype))
+            else:
+                cache, last = self.prefill(cache, admit_ids, admit_lengths, slot_mask=admit_mask)
+                mask = self._tensor(admit_mask, torch.bool)
+                t0 = samp(last)
+            toks = torch.where(mask, t0, toks)
+            emitted0 = mask.to(torch.int32)
+            done = (done & ~mask) | (mask & eos_on & (t0 == eos))
+            if admit_budgets is not None:
+                budgets = torch.where(mask, self._tensor(admit_budgets, torch.int32), budgets)
+        else:
+            t0 = toks
+            emitted0 = torch.zeros_like(budgets)
+        done = done | (emitted0 >= budgets) | (cache["lengths"] >= self.max_seq)
+        emitted = torch.zeros_like(budgets)
+        out = []
+        for _ in range(steps):
+            act = ~done  # a frozen slot stays frozen for the rest of the round
+            logits = self._decode_step(cache, toks, act)
+            nxt = samp(logits)
+            # A frozen slot emits padding, which the host drops by ``emitted``.
+            nxt = torch.where(done, torch.where(eos_on, eos.clamp(min=0), toks), nxt)
+            emitted = emitted + act.to(torch.int32)
+            done = (done | (act & eos_on & (nxt == eos)) | (emitted0 + emitted >= budgets)
+                    | (cache["lengths"] >= self.max_seq))
+            out.append(nxt)
+            toks = nxt
+        cols = [t0[:, None], *(o[:, None] for o in out), emitted[:, None], done[:, None],
+                cache["lengths"][:, None]]
+        blob = torch.cat([c.to(torch.int32) for c in cols], dim=1)
+        return cache, blob, (toks, done, budgets - emitted0 - emitted)
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
                  sampling: SamplingParams = SamplingParams(),

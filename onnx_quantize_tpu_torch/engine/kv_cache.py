@@ -15,17 +15,20 @@ old one under jit), the port writes the buffers in place. A write takes a
 ``(B, T)`` mask: masked rows keep their old contents. This stands in for the
 JAX scatter's ``mode="drop"``, which torch lacks; an out-of-range index on
 CUDA would be a device-side assert, so positions are clamped into range and
-the masked rows write back what they read.
+the masked rows write back what they read. The narrow admission's
+``write_kv_rows`` takes its rows' slots from the host instead, and drops the
+padding rows there, before any index is built.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["KVCacheConfig", "QuantizedKV", "init_cache", "write_kv", "read_kv",
-           "read_kv_quantized", "pack_nibbles", "unpack_nibbles"]
+__all__ = ["KVCacheConfig", "QuantizedKV", "init_cache", "write_kv", "write_kv_rows",
+           "admitted_rows", "read_kv", "read_kv_quantized", "pack_nibbles", "unpack_nibbles"]
 
 
 @dataclasses.dataclass
@@ -122,6 +125,11 @@ def _quantize_sym4(x: torch.Tensor):
     return pack_nibbles(q), scale
 
 
+def _quantize_like(cache: dict, x: torch.Tensor):
+    """Quantize fresh rows in the cache's own format (int8 or packed int4)."""
+    return _quantize_sym4(x) if cache["k"].dtype == torch.uint8 else _quantize_sym(x)
+
+
 def _masked_write(buf: torch.Tensor, layer: int, rows: torch.Tensor,
                   positions: torch.Tensor, mask: torch.Tensor) -> None:
     """``buf[layer, b, positions[b, t]] = rows[b, t]`` where ``mask[b, t]``.
@@ -143,14 +151,49 @@ def write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
     """Write new K/V rows (B, T, H_kv, D) at ``positions`` (B, T) of ``layer``,
     in place, for the (b, t) entries where ``mask`` (B, T) is set."""
     if "k_scale" in cache:
-        quantize = _quantize_sym4 if cache["k"].dtype == torch.uint8 else _quantize_sym
-        kq, ks = quantize(k)
-        vq, vs = quantize(v)
+        kq, ks = _quantize_like(cache, k)
+        vq, vs = _quantize_like(cache, v)
         for key, rows in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
             _masked_write(cache[key], layer, rows, positions, mask)
     else:
         _masked_write(cache["k"], layer, k, positions, mask)
         _masked_write(cache["v"], layer, v, positions, mask)
+
+
+def admitted_rows(slots, batch: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, slots) int64 index tensors on ``device`` for a narrow
+    admission: ``slots`` (A,) is a host array of batch slots, in which the
+    bucket's padding rows carry ``batch``. The padding rows are dropped here,
+    on the host: the JAX scatter drops them as out of range (mode="drop"),
+    which a torch index would raise on, or assert on a card."""
+    slots = np.asarray(slots)
+    rows = np.flatnonzero((slots >= 0) & (slots < batch))
+
+    def as_index(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+
+    return as_index(rows), as_index(slots[rows])
+
+
+def write_kv_rows(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor):
+    """Write rows ``rows`` (n,) of A new rows' K/V (A, T, H_kv, D), at their
+    ``positions`` (A, T), into batch slots ``slots`` (n,) of ``layer``, in
+    place (see :func:`admitted_rows`). Returns the fresh rows, all A of them:
+    a :class:`QuantizedKV` of the just-quantized codes and scales, or the
+    float (k, v). The admission's attention reads these and nothing of the
+    wide cache, over the same int8/int4 values the cache now holds."""
+    pos = positions[rows].long()
+    dst = slots[:, None].expand_as(pos)
+    if "k_scale" in cache:
+        kq, ks = _quantize_like(cache, k)
+        vq, vs = _quantize_like(cache, v)
+        for key, fresh in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+            cache[key][layer].index_put_((dst, pos), fresh[rows].to(cache[key].dtype))
+        return QuantizedKV(k=kq, v=vq, k_scale=ks, v_scale=vs)
+    for key, fresh in (("k", k), ("v", v)):
+        cache[key][layer].index_put_((dst, pos), fresh[rows].to(cache[key].dtype))
+    return k, v
 
 
 def read_kv_quantized(cache: dict, layer: int, use_kernel: bool = False) -> QuantizedKV:

@@ -1,20 +1,22 @@
-"""Token sampling: greedy, temperature, top-k, top-p.
+"""Token sampling: greedy, temperature, top-k, top-p; scalar and per-row.
 
-Counterpart of ``sample`` in ``onnx_quantize_tpu/engine/sampling.py``. Logits
-are cast to float32 first, so a bf16 stream never changes the argmax or the
-top-p cutoff. Random draws come from a ``torch.Generator``; they differ from
-JAX's random streams, so only the greedy path is held to the JAX package.
-The per-row serving sampler waits with the scheduler (ROADMAP.md, Queue A
-item 9).
+Counterpart of ``onnx_quantize_tpu/engine/sampling.py``. ``sample`` applies
+one SamplingParams to the whole batch. ``sample_batch`` is the serving
+path's sampler: per-row parameter tensors, so requests with different
+settings sample in one round. Logits are cast to float32 first, so a bf16
+stream never changes the argmax or the top-p cutoff. Random draws come from a
+``torch.Generator``; they differ from JAX's random streams, so only the
+greedy path and the masks are held to the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["SamplingParams", "sample"]
+__all__ = ["SamplingParams", "sample", "sample_batch", "batch_sampling_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,3 +55,74 @@ def _masked_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
         logits = torch.where(logits < cutoff, float("-inf"), logits)
     return logits
+
+
+def batch_sampling_arrays(params_list: list[SamplingParams]):
+    """Pack per-slot SamplingParams into host (temps, top_ks, top_ps) arrays
+    plus the static variant flags ``(need_temp, need_topk, need_topp)``.
+
+    The flags gate whole blocks of ``sample_batch``, so an all-greedy batch
+    runs a bare argmax: top-k and top-p sort a (B, V) matrix, which a round
+    should not pay blind."""
+    temps = np.array([p.temperature for p in params_list], np.float32)
+    top_ks = np.array([p.top_k for p in params_list], np.int32)
+    top_ps = np.array([p.top_p for p in params_list], np.float32)
+    sampled = temps > 0
+    variant = (
+        bool(sampled.any()),
+        bool((sampled & (top_ks > 0)).any()),
+        bool((sampled & (top_ps < 1.0)).any()),
+    )
+    return (temps, top_ks, top_ps), variant
+
+
+def sample_batch(logits: torch.Tensor, generator: torch.Generator | None,
+                 temps: torch.Tensor, top_ks: torch.Tensor, top_ps: torch.Tensor, *,
+                 need_temp: bool = True, need_topk: bool = True,
+                 need_topp: bool = True) -> torch.Tensor:
+    """Per-row sampling from (B, V) logits; returns (B,) int64 on the device.
+
+    ``temps`` (B,) float32 (<= 0: a greedy row), ``top_ks`` (B,) int32 (0:
+    off), ``top_ps`` (B,) float32 (>= 1: off), on the logits' device. Rows
+    with a feature off take no mask from it, so one call serves a mixed
+    batch. The draw is Gumbel-max over the whole (B, V) matrix, one uniform
+    per position from ``generator``, as JAX's ``categorical`` draws: a row's
+    noise depends on its position in the batch and not on the other rows'
+    logits, and nothing waits on the host.
+    """
+    logits = logits.to(torch.float32)
+    greedy = torch.argmax(logits, dim=-1)
+    if not need_temp:
+        return greedy
+    x = _masked_rows(logits, temps, top_ks, top_ps, need_topk, need_topp)
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    sampled = torch.argmax(x + gumbel, dim=-1)
+    return torch.where(temps <= 0.0, greedy, sampled)
+
+
+def _masked_rows(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                 top_ps: torch.Tensor, need_topk: bool, need_topp: bool) -> torch.Tensor:
+    """float32 (B, V) logits over each row's temperature, -inf outside the
+    row's top-k and outside its top-p nucleus."""
+    x = logits / temps.clamp(min=1e-6)[:, None]
+    sorted_desc = None
+    if need_topk or need_topp:
+        sorted_desc = torch.sort(x, dim=-1, descending=True).values
+    V = x.shape[-1]
+    if need_topk:
+        idx = (top_ks.to(torch.int64) - 1).clamp(0, V - 1)
+        kth = torch.gather(sorted_desc, -1, idx[:, None])
+        on = (top_ks > 0)[:, None]
+        x = torch.where(on & (x < kth), float("-inf"), x)
+        # The masked entries are the sorted tail below the kth value, so the
+        # masked descending sort needs no second sort.
+        sorted_desc = torch.where(on & (sorted_desc < kth), float("-inf"), sorted_desc)
+    if need_topp:
+        cum = torch.cumsum(torch.softmax(sorted_desc, dim=-1), dim=-1)
+        # Clamped as in _masked_logits: a row whose float32 mass ends below
+        # top_p keeps every finite logit.
+        cutoff_idx = (cum < top_ps[:, None]).sum(dim=-1, keepdim=True).clamp(max=V - 1)
+        cutoff = torch.gather(sorted_desc, -1, cutoff_idx)
+        x = torch.where((top_ps < 1.0)[:, None] & (x < cutoff), float("-inf"), x)
+    return x

@@ -23,7 +23,12 @@ from onnx_quantize_tpu_torch.algorithms import (
 )
 from onnx_quantize_tpu_torch.core.enums import QFormat
 from onnx_quantize_tpu_torch.core.numerics import dequantize
-from onnx_quantize_tpu_torch.engine import InferenceEngine, prepare_kernel_scales
+from onnx_quantize_tpu_torch.engine import (
+    ContinuousBatchingScheduler,
+    InferenceEngine,
+    SamplingParams,
+    prepare_kernel_scales,
+)
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
 from onnx_quantize_tpu_torch.nn.qtensor import ActQuantSpec, QBias, make_qtensor
 from onnx_quantize_tpu_torch.ops import convert_to_w4a8, quantized_matmul
@@ -903,3 +908,93 @@ def test_quarot_llama_checkpoint_on_card_is_bit_equal(tmp_path):
     got, _, _ = _llama_run(model2, back, modules)
     assert torch.equal(got, want)
     assert not torch.equal(unstamped, want)
+
+
+# -- serving: the continuous-batching scheduler on the card -----------------------
+
+SERVE_PREFIX = [7, 3, 99, 12, 5, 44, 21, 300, 411, 2, 17]
+
+
+def _serving_tree(a8: bool):
+    """The tiny model at head_dim 128 (flash decode's width), uint4 g64 body
+    and int8 head, fused; the whole of it converted to W4A8/W8A8 when ``a8``."""
+    cfg = Gemma3Config.tiny(**TINY128, intermediate_size=256, vocab_size=512)
+    model = Gemma3(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=64), ignore=["lm_head"]))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    params = fuse_gemma3_projections(params)
+    return model, convert_to_w4a8(params) if a8 else params
+
+
+def _serve(model, params, reqs, chunk, pipeline, fused=False, kv_quant=True):
+    eng = InferenceEngine(model, params, max_batch=4, max_seq=128, kv_quant=kv_quant,
+                          fused_attention=fused)
+    sched = ContinuousBatchingScheduler(
+        eng, generator=torch.Generator(device=eng.device).manual_seed(0), chunk=chunk,
+        pipeline=pipeline)
+    sched.register_prefix(SERVE_PREFIX)
+    handles = [sched.submit(p, **kw) for p, kw in reqs]
+    sched.run()
+    assert all(r.done for r in handles)
+    return [r.output for r in handles], sched.stats
+
+
+def _serve_reqs(sampled=True):
+    """Ten requests through four slots: three sampled, two with an EOS id,
+    three behind the registered prefix."""
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i in range(10):
+        kw = dict(max_new_tokens=int(rng.integers(3, 15)))
+        if sampled and i < 3:
+            kw["sampling"] = SamplingParams(temperature=0.8, top_k=20, top_p=0.95)
+        elif i in (3, 4):
+            kw["eos_token_id"] = 17
+        elif i in (5, 6, 7):
+            kw["use_prefix"] = True
+        reqs.append((rng.integers(1, 512, int(rng.integers(3, 21))).tolist(), kw))
+    return reqs
+
+
+def test_serving_a8_on_card_equals_plain(monkeypatch):
+    """chip_smoke's serving arm (b) at a tiny width: the A8 tree served on the
+    card (sampled, EOS and prefix requests, chunk 4, pipeline 2, narrow
+    admission) launches W4A8 and W8A8 and gives the same outputs and stats as
+    with the two kernels swapped for their plain versions."""
+    _require_cuda()
+    model, tree = _serving_tree(a8=True)
+    on_card = tree_map(lambda t: t.to("cuda"), tree)
+    before = matmul_w4a8.launches, matmul_w8a8.launches
+    got, stats = _serve(model, on_card, _serve_reqs(), 4, 2)
+    torch.cuda.synchronize()
+    assert matmul_w4a8.launches > before[0] and matmul_w8a8.launches > before[1]
+    monkeypatch.setattr(matmul_w4a8, "w4a8_matmul", matmul_w4a8.w4a8_matmul_plain)
+    monkeypatch.setattr(matmul_w8a8, "w8a8_matmul", matmul_w8a8.w8a8_matmul_plain)
+    counts = matmul_w4a8.launches, matmul_w8a8.launches
+    plain, plain_stats = _serve(model, on_card, _serve_reqs(), 4, 2)
+    assert (matmul_w4a8.launches, matmul_w8a8.launches) == counts
+    assert got == plain and stats == plain_stats
+
+
+def test_serving_w4_on_card_matches_cpu_and_runs_flash_decode():
+    """A float32 W4 tree served greedily: over a float cache the card's tokens
+    equal the CPU's (plain versions); over the int8 cache with
+    ``fused_attention=True`` every decode step runs flash decode in every
+    layer, slots at ragged lengths, with the unfused engine's tokens."""
+    _require_cuda()
+    model, tree = _serving_tree(a8=False)
+    on_card = tree_map(lambda t: t.to("cuda"), tree)
+    reqs = _serve_reqs(sampled=False)
+    card, _ = _serve(model, on_card, reqs, 4, 2, kv_quant=False)
+    cpu, _ = _serve(model, tree, reqs, 4, 2, kv_quant=False)
+    assert card == cpu
+    before = flash_decode.launches
+    fused, stats = _serve(model, on_card, reqs, 4, 2, fused=True)
+    torch.cuda.synchronize()
+    assert flash_decode.launches - before == model.cfg.num_layers * 4 * stats["rounds"]
+    unfused, _ = _serve(model, on_card, reqs, 4, 2)
+    assert fused == unfused
