@@ -109,6 +109,30 @@ Phases (any failed check exits non-zero; each prints its seconds):
    outputs; (g) the structured-weight Llama anchor (hidden 256, 4 layers):
    plain per-channel int4 loses more than 10 ppl and the rotation recovers
    at least 70% of it. Prints its seconds and peak device memory.
+4d. Mixture-of-Experts at Qwen1.5-MoE-A2.7B's published widths (60 experts,
+   top-4, experts 1408 wide, a 5632-wide shared expert behind a sigmoid gate,
+   hidden 2048, 24 layers, 16 heads of 128 with q/k/v biases, vocab 151,936,
+   untied head), full depth, bf16, random weights from seed 0 (projections
+   at std 0.02). First W4 at its new shapes (q/k/v/o, an expert's gate_up
+   and down, the shared pair, the fused layout's 168,960-wide gate_up and
+   84,480-deep down) at M=32 and 4096 against its plain version, beside its
+   bound and the dequantize-once bf16 matmul; flash decode at 16 heads on 16
+   of 128 and flash attention at the 2048-token window. RTN uint4 g128 and
+   g64 on the card (router and shared gate left float), the int8 head, then
+   the engine layouts: g128 keeps every layer in the loop (11 groups) and
+   stacks it, g64 fuses every layer. (a) the stacked tree and (b) the fused
+   one, the ragged prefill off: prefill 32 prompts of 128 and 32 greedy
+   steps over an int8 cache, W4 launches gated per forward (q, k, v, o, the
+   shared pair and the experts' sites), prefill logits within 5% of the
+   plain run's largest, 90% of the routing choices alike, the served tokens
+   teacher-forced through the plain run (``TF_EXACT_MIN`` its argmax, worst
+   margin under ``TF_MARGIN_MAX``), beside a no-kernel sensitivity control
+   read the same ways; (c) (a)'s tokens through flash decode; (d) (a) as
+   W4A8/W8A8 at B=4, logits and tokens equal to plain; (e) one 2048-token
+   window of (a) on "auto", NLL within 0.2% of plain; (f) the ragged prefill
+   against the dense-masked experts, layer 0 timed at M from 8 to 4096 and
+   the whole model's logits and forward time compared, the numbers behind
+   ``RAGGED_MIN_M``. Prints its seconds and peak memory.
 5. Rates: decode tokens/s for the quantized arm, the same with flash decode
    (``fused_attention=True``), the W4A8 arm, the Q8 arm, the quantized arm
    with the fused MLP and an unquantized bf16 arm, by
@@ -1080,7 +1104,7 @@ def plain_kernels(only=None):
         mlp_w4,
     )
 
-    swaps = [(matmul_w4, "w4_matmul", matmul_w4.w4_dequant_matmul_plain),
+    swaps = [(matmul_w4, "w4_matmul", w4_plain_in_row_chunks),
              (matmul_w8, "w8_matmul", matmul_w8.w8_dequant_matmul_plain),
              (matmul_w4a8, "w4a8_matmul", matmul_w4a8.w4a8_matmul_plain),
              (matmul_w8a8, "w8a8_matmul", matmul_w8a8.w8a8_matmul_plain),
@@ -1098,6 +1122,23 @@ def plain_kernels(only=None):
     finally:
         for (module, name, _), wrapper in zip(swaps, saved):
             setattr(module, name, wrapper)
+
+
+# The W4 plain version forms a (groups, M, N) float32 product; at a prefill's
+# M the fused MoE sites would need tens of GB of it, so reference runs take
+# it in row chunks of at most this many bytes (each row's arithmetic is the
+# same either way).
+PLAIN_W4_SCRATCH_BYTES = 8 << 30
+
+
+def w4_plain_in_row_chunks(x2d, data, scales, zps, *, gs: int, signed: bool):
+    """The W4 plain version over row chunks of x2d (reference runs only)."""
+    from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import w4_dequant_matmul_plain
+
+    rows = max(1, PLAIN_W4_SCRATCH_BYTES // (4 * (2 * data.shape[0] // gs) * data.shape[1]))
+    return torch.cat([w4_dequant_matmul_plain(x2d[i:i + rows], data, scales, zps, gs=gs,
+                                              signed=signed)
+                      for i in range(0, max(x2d.shape[0], 1), rows)])
 
 
 def build_models():
@@ -1513,13 +1554,13 @@ LLAMA_INIT_STD = 0.02
 ANCHOR_MIN_GAP, ANCHOR_MAX_SHARE = 10.0, 0.3
 
 
-def run_llama_flash_attention(gen) -> dict:
-    """Flash attention at Llama-3.2-1B's window shape (T=2048, 32 query heads
-    on 8 KV heads of 64, causal, bf16) against its plain version, and one
-    window's 16 layers timed: the kernel, the plain version and SDPA."""
+def run_window_flash_attention(gen, name: str, Hq: int, Hkv: int, D: int, layers: int) -> dict:
+    """Flash attention at a model's window shape (T=2048, ``Hq`` query heads on
+    ``Hkv`` KV heads of ``D``, causal, bf16) against its plain version, and one
+    window's ``layers`` layers timed: the kernel, the plain version and SDPA."""
     from onnx_quantize_tpu_torch.ops.kernels import flash_attention as fa
 
-    B, T, Hq, Hkv, D, layers = 1, 2048, 32, 8, 64, 16
+    B, T = 1, 2048
     args = fa_inputs(B, T, Hq, Hkv, D, torch.bfloat16, gen)
     plan = fa.fa_plan(B, T, T, Hq, Hkv, D, None, torch.bfloat16)
     routes = dict(fa.route_launches)
@@ -1527,8 +1568,8 @@ def run_llama_flash_attention(gen) -> dict:
     want = fa.flash_attention_reference(*args, sliding_window=None)
     torch.cuda.synchronize()
     check(plan.route == "mma" and fa.route_launches["mma"] == routes["mma"] + 1,
-          "Llama flash attention did not take the tensor-core route")
-    err = check_attention("fa_llama_T2048_g4_D64", got, want, torch.bfloat16)
+          f"{name} flash attention did not take the tensor-core route")
+    err = check_attention(name, got, want, torch.bfloat16)
     res = {"max_abs_err": err,
            "ms": layers * cuda_time_ms(lambda: fa.flash_attention(*args, sliding_window=None), 20),
            "plain_ms": layers * cuda_time_ms(
@@ -1536,7 +1577,7 @@ def run_llama_flash_attention(gen) -> dict:
            "library_ms": layers * sdpa_ms(*args, None)}
     res["bound_ms"], res["bound_by"] = bound(
         layers * nbytes(*args, got), layers * 4 * B * Hq * D * causal_pairs(T, None), "bf16")
-    print(f"kernel flash_attention fa_llama_T2048_g4_D64 (16 causal layers): {describe(plan)} "
+    print(f"kernel flash_attention {name} ({layers} causal layers): {describe(plan)} "
           f"max_abs_err={err:.3e} kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
           f"sdpa_ms={res['library_ms']:.4f} bound_ms={res['bound_ms']:.5f} "
           f"({res['bound_by']})", flush=True)
@@ -1557,6 +1598,16 @@ def llama_params(model) -> dict:
     return params
 
 
+def bump_embedding(tree) -> tuple[dict, int]:
+    """``tree`` with one bf16 ulp added to 0.1% of the embedding's entries
+    (seeded), and the count bumped: a control of the model's own sensitivity."""
+    emb = tree["embed"]["w"]
+    bump = torch.rand(emb.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                      device="cuda") < 1e-3
+    return {**tree, "embed": {"w": torch.where(
+        bump, torch.nextafter(emb, torch.full_like(emb, math.inf)), emb)}}, int(bump.sum())
+
+
 def sensitivity_control(model, tree, card) -> None:
     """The W4 arm's bar beside the model's own sensitivity: the plain run's
     prefill logits against the plain run with one bf16 ulp added to 0.1% of
@@ -1565,11 +1616,7 @@ def sensitivity_control(model, tree, card) -> None:
 
     B, T = 32, 128
     ids = np.random.default_rng(SEED).integers(1, model.cfg.vocab_size, size=(B, T))
-    emb = tree["embed"]["w"]
-    bump = torch.rand(emb.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
-                      device="cuda") < 1e-3
-    bumped = {**tree, "embed": {"w": torch.where(
-        bump, torch.nextafter(emb, torch.full_like(emb, math.inf)), emb)}}
+    bumped, n_bumped = bump_embedding(tree)
     logits = []
     with plain_kernels():
         for t in (tree, bumped):
@@ -1579,7 +1626,7 @@ def sensitivity_control(model, tree, card) -> None:
                                           np.full((B,), T, np.int32))[1].float())
     diff = (logits[1] - logits[0]).abs().max().item()
     peak = logits[0].abs().max().item()
-    print(f"sensitivity control (Llama-3.2-1B QuaRot W4, plain, {int(bump.sum())} embedding "
+    print(f"sensitivity control (Llama-3.2-1B QuaRot W4, plain, {n_bumped} embedding "
           f"entries one bf16 ulp up) on {card}: prefill logits max_abs_diff={diff:.4e} "
           f"({diff / peak:.4f} of max|logit| {peak:.4e}; not gated)", flush=True)
 
@@ -1749,6 +1796,551 @@ def run_llama_quarot(card) -> dict:
     launches.update({k: w4_launches[k] + fa_launches[k] for k in ("w4", "w8")})
     launches["flash_attention"] = fa_launches["flash_attention"]
     return launches
+
+
+# -- phase 4d: Mixture-of-Experts at Qwen1.5-MoE-A2.7B's width --------------------
+
+# W4 at the MoE path's shapes new to the port (name, K, N, group size): the
+# attention sites (q, k and v carry biases, so they stay unfused, each
+# 2048 x 2048 as o is), one routed expert's fused gate_up and its down
+# (K = 1408: 11 groups and one pad group at g128), the shared expert's pair,
+# and the fused layout's two sites at g64 (60 experts' gate_up along N,
+# their down along K); at a decode step (M=32) and a 32x128 prefill (M=4096).
+MOE_W4_SHAPES = [("attn_q_k_v_o", 2048, 2048, 128), ("expert_gate_up", 2048, 2816, 128),
+                 ("expert_down", 1408, 2048, 128), ("shared_gate_up", 2048, 11264, 128),
+                 ("shared_down", 5632, 2048, 128), ("fused_gate_up", 2048, 168960, 64),
+                 ("fused_down", 84480, 2048, 64)]
+MOE_ROWS = (32, 4096)
+# Why: in a bf16 stream the W4 kernel and its plain version differ in float32
+# summation order, which flips bf16 roundings of activations. A router's
+# logits are bf16 (the stream dtype, as in the reference), so a flipped last
+# bit of its input moves a near-tied top-4 choice, that token then takes
+# another expert's output, and through attention and later routers the
+# difference spreads: on an H100 about 95% of the (token, layer) choices come
+# out alike and no row alike in all 24 layers (PERF.md section 6). So the W4
+# arms hold phase 4's 5% of the largest logit on every row of the prefill
+# logits, 90% of the choices alike, and the served tokens teacher-forced
+# through the plain run: at least TF_EXACT_MIN of them its argmax, the worst
+# margin under TF_MARGIN_MAX of the row's largest |logit|. A no-kernel
+# control, (a)'s tree with one bf16 ulp on 0.1% of the embedding, is read
+# the same ways beside them. On an H100 (PERF.md section 6) the sound arms'
+# worst margins were 0.0114-0.0123 and the control's 0.0172, so the margin
+# bar sits between them: a kernel that moves the logits as much as that
+# perturbation fails it. The argmax share does not tell them apart (arms
+# 0.9669-0.9805, control 0.9659); its bar sits under both.
+MOE_CHOICES_ALIKE_MIN = 0.90
+TF_EXACT_MIN, TF_MARGIN_MAX = 0.95, 0.015
+# The ragged prefill's rows of M timed against the dense-masked experts, per
+# source layout; the logits of the whole model compared at the ones marked.
+MOE_RAGGED_M = {"stacked": (8, 32, 128, 512, 2048, 4096), "fused": (512, 1024, 2048, 4096)}
+MOE_RAGGED_LOGITS_M = {"stacked": (128, 512, 4096), "fused": (4096,)}
+
+
+def run_moe_kernel_checks(gen, card) -> dict:
+    """W4 at the MoE shapes against its plain version (twice the same bits),
+    timed beside its bound and the dequantize-once bf16 ``torch.matmul``;
+    flash decode at the MoE decode shape (16 query heads on 16 KV heads of
+    128) and flash attention at its window shape. Returns per-shape W4 rows
+    and the flash-attention result."""
+    from onnx_quantize_tpu_torch.ops.kernels import flash_decode as fd
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for name, K, N, gs in MOE_W4_SHAPES:
+        qt = random_qtensor(K, N, "uint4", gs, False, gen)
+        for M in MOE_ROWS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            ops, kw = matmul_w4.w4_operands(x, qt)
+            y = matmul_w4.w4_matmul(*ops, **kw)
+            again = matmul_w4.w4_matmul(*ops, **kw)
+            ref = w4_plain_in_row_chunks(*ops, **kw)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            del ref
+            check(bool(torch.isfinite(y).all()), f"moe {name} M={M}: non-finite W4 output")
+            check(err <= REL_TOL * scale, f"moe {name} M={M}: W4 max abs err {err:.3e} > "
+                                          f"{REL_TOL} * {scale:.3e}")
+            check(torch.equal(y, again), f"moe {name} M={M}: two W4 launches differ")
+            check(split_scratch_clear(), f"moe {name} M={M}: K-split scratch not back at 0")
+            plan = matmul_w4.w4_plan(M, ops[0].shape[1], N, gs, torch.bfloat16, sms)
+            iters = 20 if M <= 32 else 5
+            ms = cuda_time_ms(lambda: matmul_w4.w4_matmul(*ops, **kw), iters)
+            plain_ms = cuda_time_ms(lambda: w4_plain_in_row_chunks(*ops, **kw), 2, warmup=1)
+            mm_ms, dq_ms, dq = dequant_matmul_ms(x, qt)
+            del dq
+            b_ms, b_by = bound(nbytes(*ops, y), 2 * M * K * N, "bf16")
+            rows[(name, M)] = dict(K=K, N=N, gs=gs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, bf16_matmul_ms=mm_ms, dequant_ms=dq_ms,
+                                   max_abs_err=err)
+            print(f"kernel w4 moe_{name} K={K} N={N} g{gs} M={M} on {card}: max_abs_err="
+                  f"{err:.3e} plan={plan.route} {plan.bm}x{plan.bn} splits={plan.splits} "
+                  f"blocks={plan.blocks} kernel_ms={ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+                  f"plain_ms={plain_ms:.4f} bf16_matmul_ms={mm_ms:.4f} (after a one-time "
+                  f"dequantize of {dq_ms:.4f} ms)", flush=True)
+            del x, ops, y, again
+        del qt
+        torch.cuda.empty_cache()
+    # Flash decode at the MoE decode step: B=32 rows at positions 128-159 of a
+    # 512-row cache, 16 query heads on 16 KV heads of 128 (group 1).
+    pos = list(range(128, 160))
+    args = fd_inputs(32, 512, 16, 16, 128, pos, gen)
+    plan = fd.fd_plan(32, 16, 512, None, sms)
+    got = fd.flash_decode_int8(*args, window=None)
+    again = fd.flash_decode_int8(*args, window=None)
+    want = fd.flash_decode_int8_reference(*args, window=None)
+    torch.cuda.synchronize()
+    err = check_attention("fd_moe_B32_S512_g1_D128", got, want, torch.float32)
+    check(torch.equal(got, again), "moe flash decode: two launches differ")
+    fd_ms = cuda_time_ms(lambda: fd.flash_decode_int8(*args, window=None), 50)
+    fd_plain = cuda_time_ms(lambda: fd.flash_decode_int8_reference(*args, window=None), 20)
+    print(f"kernel flash_decode fd_moe_B32_S512_g1_D128 (one layer, pos 128-159) on {card}: "
+          f"max_abs_err={err:.3e} splits={plan.splits} blocks={plan.blocks} "
+          f"kernel_ms={fd_ms:.4f} plain_ms={fd_plain:.4f}", flush=True)
+    fa = run_window_flash_attention(gen, "fa_moe_T2048_g1_D128", 16, 16, 128, 24)
+    return {"w4": rows, "flash_attention": fa}
+
+
+def moe_params(model) -> dict:
+    """The MoE model's random weights from seed 0: the port's init with every
+    projection (the router, each expert, the shared pair and its gate, the
+    untied lm_head) scaled from the Linear init's 0.1 to ``LLAMA_INIT_STD``,
+    which is Qwen1.5-MoE-A2.7B's published initializer range too (its HF
+    config.json's "initializer_range": 0.02)."""
+    from onnx_quantize_tpu_torch.utils import tree_get
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    for site in model.linear_sites():
+        node = tree_get(params, site.param_path)
+        node["w"] = node["w"] * (LLAMA_INIT_STD / 0.1)
+    return params
+
+
+@contextlib.contextmanager
+def ragged_prefill(model, mode):
+    """Every MoE layer's ``use_ragged_prefill`` set to ``mode``, "auto" after."""
+    for block in model.layers:
+        block.mlp.use_ragged_prefill = mode
+    try:
+        yield
+    finally:
+        for block in model.layers:
+            block.mlp.use_ragged_prefill = "auto"
+
+
+@contextlib.contextmanager
+def record_routing(model):
+    """Each MoE layer's top-k expert indices of every forward, in call order."""
+    records = [[] for _ in model.layers]
+
+    def recorder(routing, store):
+        def wrapped(params, x, ctx=None):
+            top_p, top_i = routing(params, x, ctx)
+            store.append(top_i)
+            return top_p, top_i
+        return wrapped
+
+    for block, store in zip(model.layers, records):
+        block.mlp._routing = recorder(block.mlp._routing, store)
+    try:
+        yield records
+    finally:
+        for block in model.layers:
+            del block.mlp._routing
+
+
+def routed_alike(first, second) -> tuple[torch.Tensor, list[float]]:
+    """(rows whose every token chose the same expert set in every layer in both
+    recordings, each layer's share of token choices alike), from the first
+    forward of each recording."""
+    rows = None
+    per_layer = []
+    for a, b in zip(first, second):
+        same = (torch.sort(a[0], dim=-1).values == torch.sort(b[0], dim=-1).values).all(-1)
+        rows = same.all(-1) if rows is None else rows & same.all(-1)
+        per_layer.append(same.float().mean().item())
+    return rows, per_layer
+
+
+def describe_alike(rows, per_layer) -> str:
+    return (f"rows routed alike in every layer {rows.float().mean().item():.4f}, token-layer "
+            f"choices alike {float(np.mean(per_layer)):.4f} (layer 0 {per_layer[0]:.4f}, layer "
+            f"{len(per_layer) // 2} {per_layer[len(per_layer) // 2]:.4f}, layer "
+            f"{len(per_layer) - 1} {per_layer[-1]:.4f})")
+
+
+def served_margins(engine, ids, lengths, served):
+    """Feeds ``served`` (B, S) after the prompts through ``engine``: a prefill,
+    then one served token a step. For each served token: the row's largest
+    logit minus the token's, over the row's largest |logit|. Returns (prefill
+    logits, share of served tokens exactly the argmax, worst margin)."""
+    B, S = served.shape
+    worst = torch.zeros((B,), dtype=torch.float32, device="cuda")
+    exact = torch.zeros((B,), dtype=torch.int64, device="cuda")
+    cache, logits = engine.prefill(engine.new_cache(), ids, lengths)
+    first_logits = logits
+    for j in range(S):
+        if j:
+            cache, logits = engine.decode(cache, served[:, j - 1])
+        lf = logits.float()
+        top = lf.max(dim=-1).values
+        tok = lf.gather(1, served[:, j:j + 1].long())[:, 0]
+        worst = torch.maximum(worst, (top - tok) / lf.abs().max(dim=-1).values)
+        exact += (tok == top).long()
+    return first_logits, int(exact.sum()) / (B * S), float(worst.max())
+
+
+def moe_expected(model, tree, B: int, T: int, expert_w4: int) -> dict:
+    """W4/W8 launches of one forward over ``B`` rows of ``T`` tokens: q, k, v,
+    o and the shared pair in every layer, the experts' ``expert_w4`` unless
+    the ragged prefill takes them, one lm_head."""
+    mlp = model.layers[0].mlp
+    layer = tree["layers.0"]["mlp"]
+    fused = "_stacked_experts" not in layer
+    source = layer.get("_stacked_experts", layer.get("_fused_experts"))
+    ragged = mlp._ragged_ok(source, (B, T, model.cfg.hidden_size), torch.device("cuda"),
+                            fused_source=fused)
+    return {"w4": model.cfg.num_layers * (6 + (0 if ragged else expert_w4)), "w8": 1}
+
+
+def run_moe_arm(model, tree, label: str, expert_w4: int, card: str, steps: int = 32) -> dict:
+    """Arms (a) and (b), with the ragged prefill off, so every expert site runs
+    its W4 kernel at the prefill's M = 4096 too: prefill 32 prompts of 128
+    tokens and ``steps`` greedy decode steps over an int8 cache, the launches
+    gated per forward. Held to the plain run: at least MOE_CHOICES_ALIKE_MIN
+    of the (token, layer) routing choices alike, the prefill logits within 5%
+    of the largest on every row, and the served tokens teacher-forced through
+    it, at least TF_EXACT_MIN its argmax with the worst margin under
+    TF_MARGIN_MAX."""
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    cfg = model.cfg
+    B, T = 32, 128
+    engine = InferenceEngine(model, tree, max_batch=B, max_seq=512, kv_quant=True,
+                             dtype=torch.bfloat16)
+    ids = np.random.default_rng(SEED).integers(1, cfg.vocab_size, size=(B, T)).astype(np.int32)
+    lengths = np.full((B,), T, np.int32)
+    torch.cuda.synchronize()
+    reset_counts()
+    with record_routing(model) as routes:
+        (cache, logits), prefill_s = timed(
+            lambda: engine.prefill(engine.new_cache(), ids, lengths))
+    prefill_counts = {k: v for k, v in kernel_counts().items() if v}
+    first = torch.argmax(logits, dim=-1)
+    (cache, generated), decode_s = timed(lambda: engine.decode_multi(cache, first, steps=steps))
+    total = kernel_counts()
+    step = moe_expected(model, tree, B, 1, expert_w4)
+    want_prefill = moe_expected(model, tree, B, T, expert_w4)
+    want_total = {k: want_prefill[k] + steps * step[k] for k in step}
+    check(prefill_counts == want_prefill, f"{label} prefill launched {prefill_counts}, expected "
+                                          f"{want_prefill} and no other")
+    check({k: v for k, v in total.items() if v} == want_total,
+          f"{label}: prefill and {steps} steps launched {total}, expected {want_total}")
+    check_on_mma(label)
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all()),
+          f"{label}: prefill logits not finite or of shape {tuple(logits.shape)}")
+    check(bool(((generated >= 0) & (generated < cfg.vocab_size)).all()), "token out of range")
+    check(bool((cache["lengths"] == T + steps).all()), f"{label}: cache lengths after decode")
+    print(f"phase 4d {label} on {card}: launches a prefill {prefill_counts}, a decode step "
+          f"{step}; prefill {1e3 * prefill_s:.1f} ms, decode {1e3 * decode_s / steps:.1f} ms a "
+          f"step (host clock, B=32, {steps} steps)", flush=True)
+
+    served = torch.cat([first[:, None], generated], dim=1)  # (B, 1 + steps)
+    counts = kernel_counts()
+    with plain_kernels(), record_routing(model) as plain_routes:
+        plain_logits, exact, margin = served_margins(engine, ids, lengths, served)
+        torch.cuda.synchronize()
+    check(kernel_counts() == counts, f"{label}: the plain-version run launched kernels")
+    rows, per_layer = routed_alike(routes, plain_routes)
+    choices = float(np.mean(per_layer))
+    diff = (logits.float() - plain_logits.float()).abs().max().item()
+    peak = plain_logits.float().abs().max().item()
+    print(f"phase 4d {label} kernel vs plain: {describe_alike(rows, per_layer)}; prefill "
+          f"logits max_abs_diff {diff:.4e}, max|logit| {peak:.4e}, tol {0.05 * peak:.4e}; "
+          f"served tokens teacher-forced through the plain run: {exact:.4f} exactly its argmax, "
+          f"worst margin {margin:.4f} of the row's largest |logit|", flush=True)
+    check(choices >= MOE_CHOICES_ALIKE_MIN, f"{label}: only {choices:.4f} of the token-layer "
+                                            "choices routed alike")
+    check(diff <= 0.05 * peak, f"{label}: prefill logits through the kernels disagree with "
+                               "plain")
+    check(exact >= TF_EXACT_MIN and margin < TF_MARGIN_MAX,
+          f"{label}: served tokens not the plain run's argmax ({exact:.4f}, margin {margin:.4f})")
+    share = rows.float().mean().item()
+    return {"launches": total, "ids": ids, "lengths": lengths, "served": served,
+            "logits": logits.float(), "routes": routes,
+            "prefill_ms": 1e3 * prefill_s, "step_ms": 1e3 * decode_s / steps,
+            "routed_alike": share, "choices_alike": choices, "tf_exact": exact,
+            "tf_margin": margin}
+
+
+def moe_sensitivity_control(model, tree, arm: dict, card: str) -> dict:
+    """The W4 arms' bars beside the model's own sensitivity: (a)'s tree through
+    the kernels (ragged prefill off, as in (a)) with one bf16 ulp added to
+    0.1% of the embedding's entries, no kernel differing. Its prefill's
+    routing and logits against (a)'s, and (a)'s served tokens teacher-forced
+    through it. Not gated: it shows what the bars tell apart."""
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    bumped, n_bumped = bump_embedding(tree)
+    engine = InferenceEngine(model, bumped, max_batch=32, max_seq=512, kv_quant=True,
+                             dtype=torch.bfloat16)
+    with record_routing(model) as routes:
+        logits, exact, margin = served_margins(engine, arm["ids"], arm["lengths"], arm["served"])
+    rows, per_layer = routed_alike(arm["routes"], routes)
+    diff = (logits.float() - arm["logits"]).abs().max().item()
+    passes = exact >= TF_EXACT_MIN and margin < TF_MARGIN_MAX
+    print(f"sensitivity control (the (a) tree through the kernels, {n_bumped} embedding "
+          f"entries one bf16 ulp up) on {card}: {describe_alike(rows, per_layer)}; prefill "
+          f"logits max_abs_diff {diff:.4e} ({diff / arm['logits'].abs().max().item():.4f} of "
+          f"max|logit|); (a)'s served tokens teacher-forced through it: {exact:.4f} exactly its "
+          f"argmax, worst margin {margin:.4f} (the W4 arms' bars {TF_EXACT_MIN} and "
+          f"{TF_MARGIN_MAX}: the control {'passes' if passes else 'fails'} them; not gated)",
+          flush=True)
+    return {"tf_exact": exact, "tf_margin": margin, "choices_alike": float(np.mean(per_layer))}
+
+
+def moe_flash_decode_arm(model, tree, arm: dict, card: str, steps: int = 16) -> dict:
+    """Arm (c): (a)'s tree with ``fused_attention=True``: (a)'s served tokens
+    teacher-forced through it over ``steps`` tokens, 24 flash-decode launches a
+    decode step, at least TF_EXACT_MIN of the served tokens its argmax with
+    the worst margin under TF_MARGIN_MAX."""
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    engine = InferenceEngine(model, tree, max_batch=32, max_seq=512, kv_quant=True,
+                             dtype=torch.bfloat16, fused_attention=True)
+    reset_counts()
+    (_, exact, margin), secs = timed(lambda: served_margins(
+        engine, arm["ids"], arm["lengths"], arm["served"][:, :steps]))
+    launches = kernel_counts()
+    layers = model.cfg.num_layers
+    check(launches["flash_decode"] == (steps - 1) * layers,
+          f"arm (c) launched {launches['flash_decode']} flash-decode kernels, expected "
+          f"{(steps - 1) * layers}")
+    print(f"phase 4d (c) flash decode (D=128, 16 heads on 16) on {card}: {steps} of (a)'s "
+          f"served tokens teacher-forced, {exact:.4f} exactly the argmax, worst margin "
+          f"{margin:.4f}; {launches['flash_decode']} flash-decode launches; {secs:.1f} s",
+          flush=True)
+    check(exact >= TF_EXACT_MIN and margin < TF_MARGIN_MAX,
+          f"arm (c): (a)'s tokens not the flash-decode engine's argmax ({exact:.4f}, "
+          f"margin {margin:.4f})")
+    return launches
+
+
+def moe_a8_arm(model, tree, card: str, steps: int = 8) -> dict:
+    """Arm (d): (a)'s tree through ``convert_to_w4a8``, B=4: prefill and greedy
+    decode launch W4A8 on every body site and W8A8 on the lm_head; logits and
+    tokens equal to the same run on the plain kernels."""
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+    from onnx_quantize_tpu_torch.ops import convert_to_w4a8
+
+    cfg = model.cfg
+    B, T = 4, 128
+    engine = InferenceEngine(model, convert_to_w4a8(tree), max_batch=B, max_seq=512,
+                             kv_quant=True, dtype=torch.bfloat16)
+    ids = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, size=(B, T))
+    lengths = np.full((B,), T, np.int32)
+
+    def run():
+        cache, logits = engine.prefill(engine.new_cache(), ids, lengths)
+        _, toks = engine.decode_multi(cache, torch.argmax(logits, -1), steps=steps)
+        return logits, toks
+
+    reset_counts()
+    (logits, toks), secs = timed(run)
+    launches = kernel_counts()
+    # q, k, v, o, the shared pair and every expert's gate_up and down a layer.
+    want = {"w4a8": (1 + steps) * cfg.num_layers * (6 + 2 * cfg.num_experts), "w8a8": 1 + steps}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"arm (d) launched {launches}, expected {want}")
+    check_on_mma("arm (d)")
+    with plain_kernels():
+        (plain_logits, plain_toks), plain_secs = timed(run)
+    check(kernel_counts() == launches, "arm (d): the plain-version run launched kernels")
+    equal = torch.equal(logits, plain_logits) and torch.equal(toks, plain_toks)
+    print(f"phase 4d (d) W4A8 body, W8A8 head (B=4, {steps} steps) on {card}: launches "
+          f"{want}; logits and tokens equal to plain: {equal}; {secs:.1f} s, plain "
+          f"{plain_secs:.1f} s", flush=True)
+    check(equal, "arm (d): the A8 kernels disagree with their plain versions")
+    return launches
+
+
+def moe_scoring_arm(model, tree, card: str) -> dict:
+    """Arm (e): one 2048-token window of (a)'s tree through
+    ``perplexity_from_tokens``: flash attention in all 24 layers (D=128, MHA);
+    the window's NLL within 0.2% of the plain run's."""
+    from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
+
+    cfg = model.cfg
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 2048)
+    reset_counts()
+    ppl, secs = timed(lambda: perplexity_from_tokens(model, tree, tokens, 2048, 2048))
+    launches = kernel_counts()
+    want = moe_expected(model, tree, 1, 2048, 2 * cfg.num_experts)
+    want["flash_attention"] = cfg.num_layers
+    check({k: v for k, v in launches.items() if v} == want,
+          f"arm (e) launched {launches}, expected {want}")
+    check(kernel_modules()["flash_attention"].route_launches["mma"] == cfg.num_layers,
+          "arm (e): flash attention off the tensor cores")
+    with plain_kernels():
+        ppl_plain, plain_secs = timed(lambda: perplexity_from_tokens(model, tree, tokens, 2048,
+                                                                     2048))
+    nll, nll_plain = math.log(ppl), math.log(ppl_plain)
+    print(f"phase 4d (e) one 2048-token window on {card}: ppl kernels {ppl:.4f} ({secs:.2f} s), "
+          f"plain {ppl_plain:.4f} ({plain_secs:.2f} s); NLL {nll:.6f} vs {nll_plain:.6f}, tol "
+          f"{MEAN_NLL_REL_TOL * nll_plain:.2e}; launches {want}", flush=True)
+    check(math.isfinite(ppl) and abs(nll - nll_plain) <= MEAN_NLL_REL_TOL * nll_plain,
+          "arm (e): the window NLL through the kernels disagrees with plain")
+    return launches
+
+
+def ragged_from(times: dict):
+    """The least M measured from which the ragged layer is the faster at every
+    larger M measured (None where it is not the faster at the largest)."""
+    least = None
+    for M in sorted(times, reverse=True):
+        dense, ragged = times[M]
+        if ragged >= dense:
+            break
+        least = M
+    return least
+
+
+def moe_ragged_arm(model, tree, source: str, card: str) -> dict:
+    """Arm (f): layer 0's experts over M rows by the ragged prefill and by the
+    dense-masked layout (CUDA events, each call alone), and the whole model's
+    logits and forward time (host clock) both ways at the marked M. Returns
+    {M: (dense ms, ragged ms)}."""
+    from onnx_quantize_tpu_torch.models import gemma3
+
+    cfg = model.cfg
+    mlp = model.layers[0].mlp
+    layer = tree["layers.0"]["mlp"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    with torch.inference_mode():
+        for M in MOE_RAGGED_M[source]:
+            x = torch.randn((M, cfg.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+            with ragged_prefill(model, False):
+                dense = cuda_time_ms(lambda: mlp(layer, x), 5)
+            with ragged_prefill(model, True):
+                ragged = cuda_time_ms(lambda: mlp(layer, x), 5)
+            times[M] = (dense, ragged)
+        for M in MOE_RAGGED_LOGITS_M[source]:
+            ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+                1, cfg.vocab_size, size=(M // 128, 128))).to("cuda")
+            with ragged_prefill(model, False), record_routing(model) as dense_routes:
+                dense_logits, dense_s = timed(lambda: model(tree, ids).float())
+            fetches = [b.mlp.host_fetches for b in model.layers]
+            with ragged_prefill(model, True), record_routing(model) as ragged_routes:
+                ragged_logits, ragged_s = timed(lambda: model(tree, ids).float())
+            fetched = sum(b.mlp.host_fetches for b in model.layers) - sum(fetches)
+            check(bool(torch.isfinite(ragged_logits).all()), f"ragged {source} M={M}: logits "
+                                                             "not finite")
+            check(fetched == cfg.num_layers, f"ragged {source} M={M}: {fetched} host fetches, "
+                                             f"expected one a layer")
+            alike = describe_alike(*routed_alike(dense_routes, ragged_routes))
+            diff = (ragged_logits - dense_logits).abs().max().item()
+            print(f"phase 4d (f) ragged vs dense-masked, {source} tree, M={M} on {card}: logits "
+                  f"max_abs_diff {diff:.4e} of max|logit| {dense_logits.abs().max().item():.4e} "
+                  f"(not gated: the ragged path's weights are rounded to bf16); {alike}; host "
+                  f"fetches {fetched} ({cfg.num_layers} layers); the model's forward "
+                  f"dense-masked {1e3 * dense_s:.1f} ms, ragged {1e3 * ragged_s:.1f} ms (host "
+                  f"clock, first call each)", flush=True)
+            del dense_logits, ragged_logits
+    print(f"phase 4d (f) layer 0's experts, {source} tree, on {card} (CUDA events, L2 cold): "
+          + "; ".join(f"M={M} dense-masked {d:.3f} ms, ragged {r:.3f} ms" for M, (d, r)
+                      in times.items())
+          + f"; measured: ragged the faster from M >= {ragged_from(times)}; the auto rule "
+            f"(RAGGED_MIN_M) takes a prompt's forward from M >= {gemma3.RAGGED_MIN_M[source]}",
+          flush=True)
+    return times
+
+
+def run_moe(card) -> dict:
+    """Phase 4d: Qwen1.5-MoE-A2.7B at full width and depth in bf16 from seed 0
+    (arms (a)-(f), PERF.md section 4). Returns the launches of its kernels."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.engine import prepare_kernel_scales
+    from onnx_quantize_tpu_torch.models.gemma3 import fuse_gemma3_projections
+    from onnx_quantize_tpu_torch.utils import tree_map
+    from onnx_quantize_tpu_torch.models.moe import (
+        QWEN15_MOE_A27B,
+        MoE,
+        fuse_moe_experts,
+        stack_moe_experts,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = run_moe_kernel_checks(gen, card)
+
+    cfg = dataclasses.replace(QWEN15_MOE_A27B, dtype="bfloat16")
+    model = MoE(cfg)
+    params, init_s = timed(lambda: moe_params(model))
+    leaves = []
+    tree_map(leaves.append, params)
+    print(f"Qwen1.5-MoE-A2.7B bf16 ({cfg.num_layers} layers, "
+          f"{sum(t.numel() for t in leaves) / 1e9:.2f}B params, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f} GiB) initialized on "
+          f"the card in {init_s:.2f} s", flush=True)
+    del leaves
+    head = oqt.QConfig(weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+                       ignore=[r"^layers\."])
+    trees = {}
+    for gs in (128, 64):
+        body = oqt.QConfig(weights=oqt.QWeightArgs(dtype="uint4", group_size=gs),
+                           ignore=["lm_head", r"\.router$", r"\.shared_gate$"])
+        (q, plan), q_s = timed(lambda: oqt.quantize(model, params, body))
+        q, _ = oqt.quantize(model, q, head)
+        trees[gs] = q
+        print(f"RTN uint4 g{gs} of {len(plan)} body sites and the int8 lm_head on the card: "
+              f"{q_s:.2f} s", flush=True)
+    del params, q, plan
+    torch.cuda.empty_cache()
+    print(f"peak device memory with the float and both quantized trees: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for gs in (128, 64):
+        tree = fuse_gemma3_projections(trees.pop(gs))
+        tree = fuse_moe_experts(prepare_kernel_scales(tree))
+        trees[gs] = stack_moe_experts(tree)
+        del tree
+        torch.cuda.empty_cache()
+    layouts = {gs: sorted({next(k for k in trees[gs][f"layers.{i}"]["mlp"] if k.startswith("_"))
+                           for i in range(cfg.num_layers)}) for gs in trees}
+    print(f"engine layouts: g128 {layouts[128]} (1408/128 = 11 groups, an odd count: "
+          f"fuse_moe_experts keeps the loop, then stacked), g64 {layouts[64]}", flush=True)
+    check(layouts == {128: ["_stacked_experts"], 64: ["_fused_experts"]},
+          f"engine layouts {layouts}")
+
+    # (a), its control and (c) with the ragged prefill off: every expert site
+    # runs its W4 kernel at the prefill's M too. (e) keeps "auto".
+    with ragged_prefill(model, False):
+        arm_a = run_moe_arm(model, trees[128], "(a) stacked W4 g128", 2 * cfg.num_experts,
+                            card)
+        control = moe_sensitivity_control(model, trees[128], arm_a, card)
+        fd_launches = moe_flash_decode_arm(model, trees[128], arm_a, card)
+    counted = [arm_a["launches"], fd_launches, moe_a8_arm(model, trees[128], card),
+               moe_scoring_arm(model, trees[128], card)]
+    ragged = {"stacked": moe_ragged_arm(model, trees[128], "stacked", card)}
+    del trees[128]
+    torch.cuda.empty_cache()
+    with ragged_prefill(model, False):
+        arm_b = run_moe_arm(model, trees[64], "(b) fused W4 g64", 2, card)
+    counted.append(arm_b["launches"])
+    ragged["fused"] = moe_ragged_arm(model, trees[64], "fused", card)
+    del trees
+    torch.cuda.empty_cache()
+    print(f"phase 4d Qwen1.5-MoE-A2.7B on {card}: {time.perf_counter() - t0:.1f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    launches = {}
+    for counts in counted:
+        for key, n in counts.items():
+            if n:
+                launches[key] = launches.get(key, 0) + n
+    return {"launches": launches, "checks": checks, "ragged": ragged, "a": arm_a, "b": arm_b,
+            "control": control}
 
 
 # -- phase 5: decode rates -------------------------------------------------------
@@ -2490,7 +3082,8 @@ def main() -> int:
 
     # Phase 4c: QuaRot on Llama-3.2-1B at full width; its kernels at its shapes.
     llama = run_kernel_checks(gen, LLAMA_KERNEL_CASES)
-    llama["flash_attention"] = run_llama_flash_attention(gen)
+    llama["flash_attention"] = run_window_flash_attention(gen, "fa_llama_T2048_g4_D64", 32, 8,
+                                                          64, 16)
     for kernel, big, what in (("w4", "m2048", "W4, a layer's four body sites"),
                               ("w4a8", "m4096", "W4A8, a layer's four body sites"),
                               ("w8", "m2048", "W8, the lm_head"),
@@ -2505,6 +3098,11 @@ def main() -> int:
     for key, n in run_llama_quarot(card).items():
         launches[key] = launches.get(key, 0) + n
     phase_done("4c Llama-3.2-1B QuaRot")
+
+    # Phase 4d: Mixture-of-Experts at Qwen1.5-MoE-A2.7B's width, full depth.
+    for key, n in run_moe(card)["launches"].items():
+        launches[key] = launches.get(key, 0) + n
+    phase_done("4d Qwen1.5-MoE-A2.7B")
 
     # Phase 5: rates.
     # The loop is host-bound and the host is shared, so the arms take turns
@@ -2543,7 +3141,8 @@ def main() -> int:
     phase_done("6 window scoring")
 
     # Phase 7: decode-path scoring (the flash-decode path).
-    launches["flash_decode"] = run_decode_scoring(model, qparams, card)["flash_decode"]
+    launches["flash_decode"] = (launches.get("flash_decode", 0)
+                                + run_decode_scoring(model, qparams, card)["flash_decode"])
     phase_done("7 decode scoring")
 
     # Launches of one A8 site: the activation quantizer alone, the zero pad of

@@ -47,9 +47,6 @@ __all__ = ["save_checkpoint", "load_checkpoint", "save_params", "load_params"]
 
 _SEP = "::"
 _QT_OPTIONAL = ("input_scale", "input_zero_point", "output_scale", "output_zero_point")
-# The reference config's MoE fields, which the port's config does not have yet.
-_MOE_FIELDS = ("num_experts", "num_experts_per_tok", "moe_intermediate_size",
-               "shared_expert_size", "norm_topk_prob")
 
 
 def _store(arrays: dict, bf16: list, key: str, t) -> None:
@@ -74,7 +71,8 @@ def _flatten(tree: Any, prefix: str, arrays: dict, meta: dict, bf16: list) -> No
             "kind": "qtensor", "meta": m,
             "has": {f: getattr(tree, f) is not None for f in _QT_OPTIONAL},
             "float_zero_point": float_zp,
-            "scale_layout": "baked" if tree.scale.ndim == 3 else "logical",
+            # Baked scales carry one axis more than the data (stacked too).
+            "scale_layout": "baked" if tree.scale.ndim > tree.data.ndim else "logical",
         }
         for f in ("data", "scale", "zero_point", *_QT_OPTIONAL):
             if getattr(tree, f) is not None:
@@ -181,10 +179,6 @@ def save_checkpoint(path: str, model, params: dict, plan=None) -> None:
 
 def _config_kwargs(config: dict) -> dict:
     kwargs = dict(config)
-    moe = {k: kwargs.pop(k) for k in _MOE_FIELDS if k in kwargs}
-    if moe.get("num_experts", 0) or moe.get("shared_expert_size", 0):
-        raise NotImplementedError("MoE models are not ported to PyTorch yet; see ROADMAP.md, "
-                                  "Queue A item 11.")
     if kwargs.get("rope_scaling") is not None:
         kwargs["rope_scaling"] = tuple(kwargs["rope_scaling"])
     return kwargs
@@ -192,8 +186,8 @@ def _config_kwargs(config: dict) -> dict:
 
 def load_checkpoint(path: str, device: torch.device | str = "cuda"):
     """Reload (model, params on ``device``); the model is rebuilt from the
-    saved config (Gemma-3 or the Llama conventions). Online rotations the
-    saved model carried must be stamped again by the caller."""
+    saved config (Gemma-3, the Llama conventions or an MoE). Online rotations
+    the saved model carried must be stamped again by the caller."""
     params, extra = load_params(path, device)
     if extra.get("model") != "Gemma3":
         raise ValueError(f"Cannot reconstruct model {extra.get('model')!r}; load params via "

@@ -26,6 +26,7 @@ quantization error is part of the result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -53,12 +54,17 @@ def prepare_kernel_scales(params: dict) -> dict:
     """Bake packed GROUP-quantized scale/zp into the W4 kernel's padded
     (G_pad/2, 2, N) float32 group-pair layout, once at load, so no decode
     step pays the pad and convert. ``ops.reference.weight_qparams_2d`` slices
-    the layout back, so either layout is valid wherever a QTensor flows."""
+    the layout back, so either layout is valid wherever a QTensor flows.
+
+    A leaf whose data is not 2-D (stacked MoE experts, a leading expert axis)
+    is left as it is: bake before ``models.moe.stack_moe_experts``, and each
+    expert's view of the stack keeps the layout it was stacked in."""
     from onnx_quantize_tpu_torch.ops.kernels.matmul_w4 import expand_w4_scales
 
     def prep(leaf):
         if not (isinstance(leaf, QTensor) and leaf.meta.packed
-                and leaf.meta.strategy == "group" and leaf.scale.ndim != 3):
+                and leaf.meta.strategy == "group" and leaf.data.ndim == 2
+                and leaf.scale.ndim != 3):
             return leaf
         scale, zp = expand_w4_scales(leaf)
         return dataclasses.replace(leaf, scale=scale, zero_point=zp)
@@ -182,6 +188,20 @@ class InferenceEngine:
             -1, 1, hidden.shape[-1])
         h_last = torch.gather(hidden, 1, idx)  # (B, 1, H)
         return model.lm_head(params["lm_head"], h_last)
+
+    @contextlib.contextmanager
+    def _without_auto_ragged(self):
+        """MoE layers on "auto" keep their experts dense-masked: the ragged
+        prefill fetches each layer's group sizes to the host."""
+        mlps = [block.mlp for block in getattr(self.model, "layers", [])
+                if getattr(block.mlp, "use_ragged_prefill", None) == "auto"]
+        for mlp in mlps:
+            mlp.use_ragged_prefill = False
+        try:
+            yield
+        finally:
+            for mlp in mlps:
+                mlp.use_ragged_prefill = "auto"
 
     @torch.inference_mode()
     def _decode_step(self, cache, tokens, active):
@@ -411,7 +431,9 @@ class InferenceEngine:
                     admit_mask=None, admit_slots=None, admit_budgets=None):
         """One serving round: an optional admission, first-token sampling,
         then ``steps`` decode steps with per-slot sampling, EOS, budgets and
-        capacity. An eager loop with no host sync inside it.
+        capacity. An eager loop with no host sync inside it: an MoE model's
+        admission keeps its experts dense-masked where its ragged prefill
+        is on "auto".
 
         ``sampling_arrays`` = (temps, top_ks, top_ps) per slot (build with
         ``sampling.batch_sampling_arrays``), ``variant`` their static flags
@@ -457,8 +479,9 @@ class InferenceEngine:
         B = toks.shape[0]
         if admit_ids is not None:
             if admit_slots is not None:
-                logits_a, greedy_a, rows, slot_index = self._admit_prefill(
-                    cache, admit_ids, admit_lengths, admit_slots)
+                with self._without_auto_ragged():
+                    logits_a, greedy_a, rows, slot_index = self._admit_prefill(
+                        cache, admit_ids, admit_lengths, admit_slots)
                 mask = torch.zeros((B,), dtype=torch.bool, device=self.device).index_fill_(
                     0, slot_index, True)
                 if need_temp:
@@ -471,7 +494,9 @@ class InferenceEngine:
                 else:
                     t0 = toks.index_put((slot_index,), greedy_a[rows].to(toks.dtype))
             else:
-                cache, last = self.prefill(cache, admit_ids, admit_lengths, slot_mask=admit_mask)
+                with self._without_auto_ragged():
+                    cache, last = self.prefill(cache, admit_ids, admit_lengths,
+                                               slot_mask=admit_mask)
                 mask = self._tensor(admit_mask, torch.bool)
                 t0 = samp(last)
             toks = torch.where(mask, t0, toks)

@@ -2,6 +2,7 @@ from onnx_quantize_tpu_torch.models.gemma3 import (
     GEMMA3_270M,
     Gemma3,
     Gemma3Config,
+    Gemma3MoEMLP,
     fuse_gemma3_projections,
 )
 from onnx_quantize_tpu_torch.models.llama import (
@@ -12,6 +13,17 @@ from onnx_quantize_tpu_torch.models.llama import (
     llama_config,
     tiny_llama_config,
 )
+from onnx_quantize_tpu_torch.models.moe import (
+    MIXTRAL_8X7B,
+    QWEN15_MOE_A27B,
+    MoE,
+    fuse_moe_experts,
+    moe_config,
+    stack_moe_experts,
+    tiny_moe_config,
+)
 
-__all__ = ["Gemma3", "Gemma3Config", "GEMMA3_270M", "fuse_gemma3_projections", "Llama",
-           "llama_config", "tiny_llama_config", "LLAMA32_1B", "LLAMA32_3B", "QWEN25_05B"]
+__all__ = ["Gemma3", "Gemma3Config", "Gemma3MoEMLP", "GEMMA3_270M", "fuse_gemma3_projections",
+           "Llama", "llama_config", "tiny_llama_config", "LLAMA32_1B", "LLAMA32_3B", "QWEN25_05B",
+           "MoE", "moe_config", "tiny_moe_config", "QWEN15_MOE_A27B", "MIXTRAL_8X7B",
+           "stack_moe_experts", "fuse_moe_experts"]

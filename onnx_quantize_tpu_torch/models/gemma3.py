@@ -26,8 +26,10 @@ per head after RoPE (so the K cache holds rotated rows) and
 ``Gemma3MLP.down_rot`` mixes the down_proj input blockwise; both are plain
 matmuls, as the reference computes them outside any Pallas kernel. A forward
 given a ``Context`` records the calibration taps of the unfused sites.
-Tensor, context and expert parallelism and MoE are not ported yet
-(ROADMAP.md, Queue A items 11 and 14).
+With ``num_experts > 0`` each block's MLP is a :class:`Gemma3MoEMLP`
+(``models/moe.py`` holds the MoE configs and the engine layouts). Tensor,
+context and expert parallelism are not ported yet (ROADMAP.md, Queue A item
+14).
 """
 
 from __future__ import annotations
@@ -38,15 +40,17 @@ import math
 import numpy as np
 import torch
 
+from onnx_quantize_tpu_torch.core.enums import QFormat
 from onnx_quantize_tpu_torch.engine.kv_cache import QuantizedKV
 from onnx_quantize_tpu_torch.nn.layers import Embedding, RMSNorm, apply_rope
 from onnx_quantize_tpu_torch.nn.module import InputSpec, Linear, Module, apply_linear
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
 from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode, mlp_w4
+from onnx_quantize_tpu_torch.ops.reference import dequantize_weight
 from onnx_quantize_tpu_torch.utils import copy_tree
 
-__all__ = ["Gemma3Config", "Gemma3", "GEMMA3_270M", "make_attention_mask",
-           "fuse_gemma3_projections"]
+__all__ = ["Gemma3Config", "Gemma3", "Gemma3MoEMLP", "GEMMA3_270M", "make_attention_mask",
+           "fuse_gemma3_projections", "glu_activation", "stacked_expert_mlp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +82,18 @@ class Gemma3Config:
     tie_lm_head: bool = True
     rope_scaling: tuple | None = None
     attn_bias: bool = False
+    # Mixture-of-Experts (the Mixtral/Qwen-MoE conventions, models/moe.py).
+    # num_experts == 0 keeps the dense MLP; above 0 the block's MLP is a
+    # Gemma3MoEMLP: a softmax router, top-k experts, each a gate/up/down trio.
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: int | None = None  # None: intermediate_size
+    # Qwen-MoE's shared expert: a dense MLP of this width on every token,
+    # gated by sigmoid(x @ w) with w (hidden, 1). 0 disables it.
+    shared_expert_size: int = 0
+    # Renormalize the top-k probabilities to sum to 1 (Mixtral: True;
+    # Qwen1.5-MoE: False).
+    norm_topk_prob: bool = True
 
     def is_global_layer(self, idx: int) -> bool:
         return (idx + 1) % self.sliding_pattern == 0
@@ -266,15 +282,263 @@ class Gemma3MLP(Module):
         else:
             gate = self.gate_proj(params["gate_proj"], x, ctx=ctx)
             up = self.up_proj(params["up_proj"], x, ctx=ctx)
-        if self.activation == "silu":
-            act = torch.nn.functional.silu(gate) * up
-        else:
-            act = torch.nn.functional.gelu(gate, approximate="tanh") * up
+        act = glu_activation(gate, up, self.activation)
         if self.down_rot is not None:
             r = _rotation_tensor(self, "down_rot", act)
             shape = act.shape
             act = (act.reshape(*shape[:-1], shape[-1] // r.shape[0], r.shape[0]) @ r).reshape(shape)
         return self.down_proj(params["down_proj"], act, ctx=ctx)
+
+
+def glu_activation(gate: torch.Tensor, up: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "silu":
+        return torch.nn.functional.silu(gate) * up
+    return torch.nn.functional.gelu(gate, approximate="tanh") * up
+
+
+def _expert_slice(site: dict, e: int) -> dict:
+    """Expert ``e``'s view of a stacked site dict (leading axis = expert): each
+    tensor of a QTensor is indexed, its meta (the per-expert shape) kept."""
+    out = {}
+    for key, leaf in site.items():
+        if isinstance(leaf, QTensor):
+            out[key] = dataclasses.replace(leaf, **{
+                f.name: None if getattr(leaf, f.name) is None else getattr(leaf, f.name)[e]
+                for f in dataclasses.fields(leaf) if f.name != "meta"})
+        else:
+            out[key] = None if leaf is None else leaf[e]
+    return out
+
+
+def stacked_expert_mlp(stacked: dict, e: int, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """One expert's gated MLP from a stacked site dict (the engine layout).
+    Each site runs ``apply_linear`` (the JAX package's ``apply_site``)."""
+    if "gate_up" in stacked:
+        gu = apply_linear(_expert_slice(stacked["gate_up"], e), x)
+        n = gu.shape[-1] // 2
+        gate, up = gu[..., :n], gu[..., n:]
+    else:
+        gate = apply_linear(_expert_slice(stacked["gate"], e), x)
+        up = apply_linear(_expert_slice(stacked["up"], e), x)
+    return apply_linear(_expert_slice(stacked["down"], e), glu_activation(gate, up, activation))
+
+
+def top_k_lower_index(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of the last axis in descending order, the lower index
+    first among equal values (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none, and bf16 router logits tie exactly)."""
+    values, index = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], index[..., :k]
+
+
+# The ragged prefill's "auto" rule on CUDA: a prompt's forward (more than one
+# token a row) takes the sorted grouped matmuls in place of the dense-masked
+# experts from these rows M on, from the stacked and from the fused layout.
+# Measured on an H100 at Qwen1.5-MoE-A2.7B's widths (chip_smoke.py phase 4d,
+# arm (f); PERF.md section 7): the least M measured from which the ragged
+# layer is the faster at every larger M measured. A decode step (one token a
+# row) keeps its experts on the kernels at any batch: the ragged path fetches
+# each layer's group sizes to the host, and ``InferenceEngine.serve_chunk``
+# turns "auto" off for its admissions, whose round queues with no host sync.
+RAGGED_MIN_M = {"stacked": 8, "fused": 1024}
+
+
+class Gemma3MoEMLP(Module):
+    """Sparse Mixture-of-Experts MLP (the Mixtral/Qwen-MoE conventions).
+
+    Counterpart of the JAX package's ``Gemma3MoEMLP``. Routing: the router
+    in the stream dtype, a float32 softmax, the top-k experts (the lower
+    index first on ties), optionally renormalized (``cfg.norm_topk_prob``).
+    Every expert is a :class:`Gemma3MLP` in the ModuleList ``experts``, so
+    its projections are sites ``layers.{i}.mlp.experts.{e}.gate_proj`` etc.;
+    Qwen's shared expert ``shared`` is added through a sigmoid gate
+    ``shared_gate``.
+
+    Execution is dense-masked: each expert runs over all rows with its
+    unrouted rows zeroed (so its calibration taps see only its routed
+    tokens), and the outputs combine in float32 with the routing weights, in
+    expert order. Three parameter layouts:
+
+    * ``experts.{e}`` subtrees (what ``init`` and ``quantize`` make): the
+      per-expert loop;
+    * ``_stacked_experts`` (``models.moe.stack_moe_experts``): site dicts
+      with a leading expert axis, the same loop over per-expert views;
+    * ``_fused_experts`` (``models.moe.fuse_moe_experts``): every expert's
+      gate/up in one matmul along N, the routing weight folded into each
+      expert's activation segment, and one down matmul along K whose
+      accumulator sums the experts.
+
+    ``use_ragged_prefill`` (True, False or "auto") runs the stacked or fused
+    experts over the sorted routed rows only: one ``torch.matmul`` per expert
+    on weights dequantized once in the stream dtype, which costs one host
+    fetch of the group sizes per layer (counted in ``host_fetches``). "auto"
+    takes it on CUDA for a forward of more than one token a row over at
+    least ``RAGGED_MIN_M`` rows, and never on the CPU. The
+    engine's fused-MLP hook never takes an MoE MLP: the experts' and the
+    shared expert's ``use_megakernel`` stay False.
+    """
+
+    def __init__(self, cfg: Gemma3Config):
+        super().__init__()
+        self.cfg = cfg
+        d, dt = cfg.hidden_size, cfg.torch_dtype
+        self.activation = cfg.mlp_activation
+        self.inter = cfg.moe_intermediate_size or cfg.intermediate_size
+        expert_cfg = dataclasses.replace(cfg, intermediate_size=self.inter)
+        self.router = Linear(d, cfg.num_experts, use_bias=False, dtype=dt)
+        self.experts = torch.nn.ModuleList(Gemma3MLP(expert_cfg) for _ in range(cfg.num_experts))
+        if cfg.shared_expert_size:
+            shared_cfg = dataclasses.replace(cfg, intermediate_size=cfg.shared_expert_size)
+            self.shared = Gemma3MLP(shared_cfg)
+            self.shared_gate = Linear(d, 1, use_bias=False, dtype=dt)
+        self.use_ragged_prefill: bool | str = "auto"
+        self.host_fetches = 0
+
+    @staticmethod
+    def _ragged_compatible(layout: dict) -> bool:
+        """The ragged path runs float matmuls on dequantized weights: only
+        weight-only QDQ sites keep their semantics there."""
+        for site in layout.values():
+            w = site.get("w")
+            if isinstance(w, QTensor) and (
+                    w.meta.fmt != QFormat.QDQ or w.meta.input_quant.mode != "none"
+                    or w.meta.output_quant.mode != "none"):
+                return False
+        return True
+
+    def _ragged_ok(self, layout, shape: tuple, device: torch.device,
+                   fused_source: bool = False) -> bool:
+        """Whether a forward over input of ``shape`` (B, T, d) takes the ragged path."""
+        mode = self.use_ragged_prefill
+        if mode is False or layout is None or not self._ragged_compatible(layout):
+            return False
+        if mode is True:
+            return True
+        M = math.prod(shape[:-1])
+        return (device.type == "cuda" and len(shape) == 3 and shape[1] > 1
+                and M >= RAGGED_MIN_M["fused" if fused_source else "stacked"])
+
+    @staticmethod
+    def _dense_stack(site: dict, dtype: torch.dtype) -> torch.Tensor:
+        """A stacked site as dense (E, K, N) weights in the stream dtype,
+        dequantized once, expert by expert."""
+        w = site["w"]
+        if isinstance(w, QTensor):
+            return torch.stack([dequantize_weight(_expert_slice(site, e)["w"])
+                                for e in range(w.data.shape[0])]).to(dtype)
+        return w.to(dtype)
+
+    @staticmethod
+    def _fused_to_stacked_dense(fused: dict, inter: int) -> dict:
+        """Dense per-expert (E, K, 2I) gate_up and (E, I, d) down of the fused layout."""
+        def dense(site):
+            w = site["w"]
+            return dequantize_weight(w) if isinstance(w, QTensor) else w
+
+        gu = dense(fused["gate_up"])
+        gu = gu.reshape(gu.shape[0], -1, 2 * inter).permute(1, 0, 2)
+        dn = dense(fused["down"])
+        return {"gate_up": {"w": gu}, "down": {"w": dn.reshape(-1, inter, dn.shape[-1])}}
+
+    def _experts_ragged(self, stacked: dict, x, top_p, top_i) -> torch.Tensor:
+        """The routed (token, choice) rows sorted by expert, one matmul per
+        expert over its rows, then each token's k contributions summed in
+        float32 in expert order, as the loop sums them (an ordered sum, not
+        an atomic scatter-add)."""
+        d = x.shape[-1]
+        k = top_i.shape[-1]
+        M = top_i.numel() // k
+        flat_e = top_i.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        xs = x.reshape(M, d)[order // k]
+        sizes = torch.bincount(flat_e, minlength=self.cfg.num_experts).tolist()  # the host fetch
+        self.host_fetches += 1
+
+        def grouped(site, rows):
+            ps = site.get("prescale")
+            if ps is not None:
+                rows = (rows * ps[sorted_e]).to(rows.dtype)
+            w = self._dense_stack(site, x.dtype)
+            out = rows.new_empty((rows.shape[0], w.shape[-1]))
+            start = 0
+            for e, n in enumerate(sizes):
+                if n:
+                    out[start:start + n] = torch.matmul(rows[start:start + n], w[e])
+                start += n
+            return out
+
+        if "gate_up" in stacked:
+            gu = grouped(stacked["gate_up"], xs)
+            n = gu.shape[-1] // 2
+            gate, up = gu[..., :n], gu[..., n:]
+        else:
+            gate, up = grouped(stacked["gate"], xs), grouped(stacked["up"], xs)
+        ys = grouped(stacked["down"], glu_activation(gate, up, self.activation))
+        contrib = torch.empty((M * k, d), dtype=torch.float32, device=x.device)
+        contrib[order] = ys.to(torch.float32) * top_p.reshape(-1)[order, None]
+        rank = torch.argsort(top_i.reshape(M, k), dim=-1)
+        contrib = contrib.reshape(M, k, d).gather(1, rank[..., None].expand(M, k, d))
+        out = torch.zeros((M, d), dtype=torch.float32, device=x.device)
+        for j in range(k):
+            out = out + contrib[:, j]
+        return out.reshape(*x.shape[:-1], d)
+
+    def _routing(self, params, x, ctx=None):
+        logits = self.router(params["router"], x, ctx=ctx).to(torch.float32)
+        top_p, top_i = top_k_lower_index(torch.softmax(logits, dim=-1),
+                                         self.cfg.num_experts_per_tok)
+        if self.cfg.norm_topk_prob:
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        return top_p, top_i
+
+    @staticmethod
+    def _combine_weights(top_p, top_i, num_experts: int) -> torch.Tensor:
+        """(..., E) float32 combine weights: the routing weight where chosen, else 0."""
+        zeros = top_p.new_zeros((*top_p.shape[:-1], num_experts))
+        return zeros.scatter(-1, top_i, top_p)
+
+    def _experts_fused(self, fused: dict, x, combine) -> torch.Tensor:
+        gu = apply_linear(fused["gate_up"], x)  # (..., E * 2I)
+        gu = gu.reshape(*gu.shape[:-1], -1, 2 * self.inter)
+        act = glu_activation(gu[..., :self.inter], gu[..., self.inter:], self.activation)
+        act = act * combine[..., None].to(act.dtype)
+        return apply_linear(fused["down"], act.reshape(*x.shape[:-1], -1)).to(x.dtype)
+
+    def forward(self, params, x, ctx=None):
+        cfg = self.cfg
+        top_p, top_i = self._routing(params, x, ctx)
+        stacked = params.get("_stacked_experts")
+        fused = params.get("_fused_experts")
+        source = stacked if stacked is not None else fused
+        from_fused = stacked is None and fused is not None
+        if self._ragged_ok(source, tuple(x.shape), x.device, from_fused):
+            if from_fused:
+                source = self._fused_to_stacked_dense(fused, self.inter)
+            out = self._experts_ragged(source, x, top_p, top_i).to(x.dtype)
+            return self._shared_out(params, x, out, ctx)
+        combine = self._combine_weights(top_p, top_i, cfg.num_experts)
+        if fused is not None:
+            return self._shared_out(params, x, self._experts_fused(fused, x, combine), ctx)
+        out = torch.zeros((*x.shape[:-1], cfg.hidden_size), dtype=torch.float32,
+                          device=x.device)
+        for e in range(cfg.num_experts):
+            w_e = combine[..., e]
+            xe = x * (w_e > 0).to(x.dtype)[..., None]
+            if stacked is not None:
+                ye = stacked_expert_mlp(stacked, e, xe, self.activation)
+            else:
+                ye = self.experts[e](params[f"experts.{e}"], xe, ctx=ctx)
+            out = out + ye.to(torch.float32) * w_e[..., None]
+        return self._shared_out(params, x, out.to(x.dtype), ctx)
+
+    def _shared_out(self, params, x, out, ctx):
+        if not self.cfg.shared_expert_size:
+            return out
+        gate = self.shared_gate(params["shared_gate"], x, ctx=ctx)
+        shared = self.shared(params["shared"], x, ctx=ctx)
+        return out + (torch.sigmoid(gate.to(torch.float32))
+                      * shared.to(torch.float32)).to(x.dtype)
 
 
 class Gemma3Block(Module):
@@ -283,7 +547,7 @@ class Gemma3Block(Module):
         d, eps, dt, one_plus = (cfg.hidden_size, cfg.rms_norm_eps, cfg.torch_dtype,
                                 cfg.rms_one_plus)
         self.attn = Gemma3Attention(cfg, layer_idx)
-        self.mlp = Gemma3MLP(cfg)
+        self.mlp = Gemma3MoEMLP(cfg) if cfg.num_experts > 0 else Gemma3MLP(cfg)
         self.input_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
         self.pre_ffn_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
         self.sandwich = cfg.sandwich_norms
@@ -332,12 +596,16 @@ def fuse_gemma3_projections(params: dict) -> dict:
             attn["_fused_qkv"] = {"w": fuse_sites(trio)[0]}
             for key in ("q_proj", "k_proj", "v_proj"):
                 del attn[key]
+        # The dense MLP, every MoE expert and the shared expert: each pair alone.
         mlp = layer["mlp"]
-        duo = [mlp.get("gate_proj"), mlp.get("up_proj")]
-        if all(t is not None for t in duo) and can_fuse(duo):
-            mlp["_fused_gate_up"] = {"w": fuse_sites(duo)[0]}
-            for key in ("gate_proj", "up_proj"):
-                del mlp[key]
+        subs = [mlp] + [v for k, v in mlp.items()
+                        if isinstance(v, dict) and (k.startswith("experts.") or k == "shared")]
+        for sub in subs:
+            duo = [sub.get("gate_proj"), sub.get("up_proj")]
+            if all(t is not None for t in duo) and can_fuse(duo):
+                sub["_fused_gate_up"] = {"w": fuse_sites(duo)[0]}
+                for key in ("gate_proj", "up_proj"):
+                    del sub[key]
     return params
 
 

@@ -34,8 +34,11 @@ in place would rotate a tied model twice.
 
 Order: rotation runs before SmoothQuant (a prescale on a reading site
 raises). Captured calibration inputs move into the rotated basis, and the
-driver calibrates again after the pass (``requires_post_calibration``). The
-reference's MoE paths wait with MoE (ROADMAP.md, Queue A item 11).
+driver calibrates again after the pass (``requires_post_calibration``). In
+an MoE layer the router, every expert's gate/up and the shared expert's
+gate/up and its gate read the stream, and every expert's down_proj and the
+shared down_proj write it; R4 (the online down rotation) is refused there,
+as each expert would need it inside its routed execution.
 """
 
 from __future__ import annotations
@@ -134,11 +137,26 @@ def _write_fold(site: dict, rot: torch.Tensor) -> None:
         site["b"] = (b.to(_F64) @ rot).to(b.dtype)
 
 
+def _mlp_paths(mlp_params: dict, prefix: tuple[str, ...]):
+    """(stream-reading paths, stream-writing paths) of a dense or MoE MLP."""
+    if "router" not in mlp_params:
+        return [prefix + ("gate_proj",), prefix + ("up_proj",)], [prefix + ("down_proj",)]
+    readers, writers = [prefix + ("router",)], []
+    for k in (k for k in mlp_params if k.startswith("experts.")):
+        readers += [prefix + (k, "gate_proj"), prefix + (k, "up_proj")]
+        writers.append(prefix + (k, "down_proj"))
+    if "shared" in mlp_params:
+        readers += [prefix + ("shared_gate",), prefix + ("shared", "gate_proj"),
+                    prefix + ("shared", "up_proj")]
+        writers.append(prefix + ("shared", "down_proj"))
+    return readers, writers
+
+
 def _decoder(model, what: str):
     from onnx_quantize_tpu_torch.models.gemma3 import Gemma3
 
     if not isinstance(model, Gemma3):
-        raise ValueError(f"{what} supports the Gemma3-family decoder (Gemma/Llama/Qwen "
+        raise ValueError(f"{what} supports the Gemma3-family decoder (Gemma/Llama/Qwen/MoE "
                          "configs)")
     return model.cfg
 
@@ -178,11 +196,12 @@ def rotate_residual_stream(model, params: dict, rotation) -> dict:
         _write_fold(layer["attn"]["o_proj"], rot)
 
         g_ffn = _gain(layer["pre_ffn_norm"], one_plus)
-        for proj in ("gate_proj", "up_proj"):
-            path = (f"layers.{i}", "mlp", proj)
+        readers, writers = _mlp_paths(layer["mlp"], (f"layers.{i}", "mlp"))
+        for path in readers:
             _read_fold(tree_get(params, path), rot_t, g_ffn)
             gains[path] = g_ffn
-        _write_fold(layer["mlp"]["down_proj"], rot)
+        for path in writers:
+            _write_fold(tree_get(params, path), rot)
         _reset_norm(layer["pre_ffn_norm"], one_plus)
 
     g_final = _gain(params["final_norm"], one_plus)
@@ -245,6 +264,10 @@ def stamp_online_rotations(model, *, qk: bool = True, down: bool = True, block: 
         if qk:
             layer.attn.qk_rot = r_qk
         if down:
+            if not hasattr(layer.mlp, "down_proj"):
+                raise NotImplementedError(
+                    "online down rotation supports dense MLPs only (MoE experts would each "
+                    "need the online transform inside their routed execution)")
             layer.mlp.down_rot = h_down
 
 
@@ -254,7 +277,8 @@ def clear_online_rotations(model) -> None:
     must be cleared (or stamped again) in between."""
     for layer in model.layers:
         layer.attn.qk_rot = None
-        layer.mlp.down_rot = None
+        if hasattr(layer.mlp, "down_rot"):
+            layer.mlp.down_rot = None
 
 
 def apply_online_rotations(model, params: dict, plan: QuantPlan | None = None, *,
@@ -264,6 +288,9 @@ def apply_online_rotations(model, params: dict, plan: QuantPlan | None = None, *
     online transforms onto ``model``. Exact logits. With a ``plan``, the
     captured inputs of o_proj and down_proj move into the rotated basis."""
     cfg = _decoder(model, "online rotations")
+    if down and any(not hasattr(layer.mlp, "down_proj") for layer in model.layers):
+        raise NotImplementedError("online down rotation supports dense MLPs only; pass "
+                                  "rotate_down=False for MoE models")
     r_qk, r_v, h_down = _build_online_rots(cfg, block, seed, need_down=down)
     device = params["embed"]["w"].device
     hd = cfg.head_dim

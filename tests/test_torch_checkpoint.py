@@ -201,8 +201,34 @@ def test_rotated_checkpoint_needs_the_stamp(tmp_path):
 
 
 def test_moe_checkpoint_waits_for_moe(tmp_path):
-    jmodel = JGemma3(tiny_moe_config(num_layers=1))
+    """An MoE checkpoint written by the JAX package (uint4 experts, a shared
+    expert) loads into the port: the MoE config rebuilt, every leaf bit-equal
+    to the bridged JAX tree, and JAX's logits; the stacked engine layout of it
+    round trips through the port's checkpoint bit-equal."""
+    from onnx_quantize_tpu.models.moe import stack_moe_experts as jstack
+
+    from onnx_quantize_tpu_torch.models.moe import stack_moe_experts
+    from onnx_quantize_tpu_torch.models.moe import tiny_moe_config as port_tiny_moe_config
+
+    cfg = dict(num_layers=2, shared_expert_size=48)
+    jmodel = JGemma3(tiny_moe_config(**cfg))
+    jq, jplan = joqt.quantize(jmodel, jmodel.init(jax.random.key(0)), joqt.QConfig(
+        weights=joqt.QWeightArgs(dtype="uint4", group_size=16),
+        ignore=[r"\.router$", r"\.shared_gate$"]))
     path = str(tmp_path / "moe")
-    jckpt.save_checkpoint(path, jmodel, jmodel.init(jax.random.key(0)))
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        load_checkpoint(path, device="cpu")
+    jckpt.save_checkpoint(path, jmodel, jq, jplan)
+    model, params = load_checkpoint(path, device="cpu")
+    assert model.cfg == port_tiny_moe_config(**cfg)
+    assert model.layers[0].mlp.cfg.num_experts == 4
+    _assert_trees_bit_equal(params, from_jax_params(jq, device="cpu"))
+    np.testing.assert_allclose(_run(model, params), np.asarray(jmodel(jq, IDS)), atol=1e-5,
+                               rtol=0)
+    stacked = stack_moe_experts(fuse_gemma3_projections(params))
+    save_checkpoint(str(tmp_path / "stacked"), model, stacked)
+    _, back = load_checkpoint(str(tmp_path / "stacked"), device="cpu")
+    _assert_trees_bit_equal(back, stacked)
+    np.testing.assert_array_equal(_run(model, back), _run(model, stacked))
+    # JAX's stacking of the same tree, bridged: the same leaves.
+    from onnx_quantize_tpu.models.gemma3 import fuse_gemma3_projections as jfuse
+
+    _assert_trees_bit_equal(from_jax_params(jstack(jfuse(jq)), device="cpu"), stacked)

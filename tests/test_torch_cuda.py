@@ -998,3 +998,139 @@ def test_serving_w4_on_card_matches_cpu_and_runs_flash_decode():
     assert flash_decode.launches - before == model.cfg.num_layers * 4 * stats["rounds"]
     unfused, _ = _serve(model, on_card, reqs, 4, 2)
     assert fused == unfused
+
+
+# -- Mixture-of-Experts: the stacked and fused layouts on the card ----------------
+
+def _moe_tree(group_size: int):
+    """A tiny Qwen-MoE-shaped model (4 experts, top-2, a shared expert),
+    uint4 body at ``group_size`` (96-wide experts: g32 keeps 3 groups, which
+    the fused layout refuses; g16 fuses), int8 head, in the engine order:
+    fused projections, baked scales, then ``fuse_moe_experts`` and
+    ``stack_moe_experts`` (which stacks whatever stayed in the loop)."""
+    from onnx_quantize_tpu_torch.models.moe import (
+        fuse_moe_experts,
+        stack_moe_experts,
+        tiny_moe_config,
+    )
+
+    model = Gemma3(tiny_moe_config(hidden_size=128, head_dim=32, num_heads=4, num_kv_heads=2,
+                                   shared_expert_size=128, norm_topk_prob=False))
+    params = model.init(torch.Generator().manual_seed(0))
+    q, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=group_size),
+        ignore=["lm_head", r"\.router$", r"\.shared_gate$"]))
+    q, _ = oqt.quantize(model, q, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    tree = fuse_moe_experts(prepare_kernel_scales(fuse_gemma3_projections(q)))
+    return model, stack_moe_experts(tree)
+
+
+MOE_IDS = np.random.default_rng(2).integers(0, 256, (4, 15)).astype(np.int32)
+MOE_LENGTHS = np.array([15, 9, 12, 4], np.int32)
+
+
+def _moe_run(model, tree, modules, kv_quant=False, steps=6):
+    eng = InferenceEngine(model, tree, max_batch=4, max_seq=32, kv_quant=kv_quant)
+    cache, logits = eng.prefill(eng.new_cache(), MOE_IDS, MOE_LENGTHS)
+    before = [m.launches for m in modules]
+    cache, toks = eng.decode_multi(cache, torch.argmax(logits, -1), steps=steps)
+    torch.cuda.synchronize()
+    return logits.float().cpu(), toks.cpu(), tuple(m.launches - b for m, b in zip(modules, before))
+
+
+@pytest.mark.parametrize("layout,group_size,w4_per_layer",
+                         [("stacked", 32, 2 + 4 * 2 + 2), ("fused", 16, 2 + 2 + 2)])
+def test_moe_engine_on_card_matches_cpu_and_counts_launches(layout, group_size, w4_per_layer):
+    """The tiny MoE engine (float32, float cache) on the card against the CPU:
+    logits within 1e-4 of the largest, greedy tokens equal; a decode step
+    launches W4 for qkv, o, each expert's gate_up and down (stacked) or the
+    two concatenated expert sites (fused), and the shared pair, and one W8."""
+    _require_cuda()
+    model, tree = _moe_tree(group_size)
+    mlp = tree["layers.0"]["mlp"]
+    assert ("_stacked_experts" if layout == "stacked" else "_fused_experts") in mlp
+    modules = (matmul_w4, matmul_w8)
+    cpu_logits, cpu_toks, cpu_launched = _moe_run(model, tree, modules)
+    gpu_logits, gpu_toks, gpu_launched = _moe_run(
+        model, tree_map(lambda t: t.to("cuda"), tree), modules)
+    assert cpu_launched == (0, 0)
+    assert gpu_launched == (6 * w4_per_layer * model.cfg.num_layers, 6)
+    scale = cpu_logits.abs().max().item()
+    assert (gpu_logits - cpu_logits).abs().max().item() <= 1e-4 * scale
+    assert torch.equal(gpu_toks, cpu_toks)
+
+
+def test_moe_ragged_prefill_on_card_matches_dense():
+    """The ragged prefill forced on over the stacked and the fused tree on the
+    card: the dense-masked prefill's logits within 1e-4 of the largest, one
+    host fetch a layer, and no W4 launch for the experts."""
+    _require_cuda()
+    for group_size in (32, 16):
+        model, tree = _moe_tree(group_size)
+        on_card = tree_map(lambda t: t.to("cuda"), tree)
+        ids = torch.from_numpy(MOE_IDS).long().cuda()
+        with torch.inference_mode():
+            for block in model.layers:
+                block.mlp.use_ragged_prefill = False
+            dense = model(on_card, ids).float()
+            for block in model.layers:
+                block.mlp.use_ragged_prefill = True
+            before = matmul_w4.launches
+            ragged = model(on_card, ids).float()
+            torch.cuda.synchronize()
+        assert matmul_w4.launches - before == 4 * model.cfg.num_layers  # attn + shared
+        assert [b.mlp.host_fetches for b in model.layers] == [1] * model.cfg.num_layers
+        assert (ragged - dense).abs().max().item() <= 1e-4 * dense.abs().max().item()
+
+
+def test_moe_auto_ragged_takes_prefill_not_serve_chunk():
+    """On the card "auto" takes the ragged prefill for prompts of at least
+    ``RAGGED_MIN_M`` rows (one host fetch a layer), never a decode step, and
+    ``serve_chunk``'s admission of the same prompts fetches nothing."""
+    from onnx_quantize_tpu_torch.engine.sampling import batch_sampling_arrays
+    from onnx_quantize_tpu_torch.models.gemma3 import RAGGED_MIN_M
+
+    _require_cuda()
+    model, tree = _moe_tree(32)
+    B, T = 4, max(2, -(-RAGGED_MIN_M["stacked"] // 4))
+    eng = InferenceEngine(model, tree_map(lambda t: t.to("cuda"), tree), max_batch=B,
+                          max_seq=T + 8)
+    ids = np.random.default_rng(3).integers(0, 256, (B, T)).astype(np.int32)
+    lengths = np.full((B,), T, np.int32)
+
+    def fetches():
+        return sum(b.mlp.host_fetches for b in model.layers)
+
+    cache, logits = eng.prefill(eng.new_cache(), ids, lengths)
+    assert fetches() == model.cfg.num_layers
+    eng.decode_multi(cache, torch.argmax(logits, -1), steps=2)
+    assert fetches() == model.cfg.num_layers
+    arrays, variant = batch_sampling_arrays([SamplingParams()] * B)
+    _, blob, _ = eng.serve_chunk(eng.new_cache(), np.zeros(B, np.int32), 2,
+                                 eos=np.full(B, -1), sampling_arrays=arrays, variant=variant,
+                                 active=np.zeros(B, bool), budgets=np.full(B, 4),
+                                 admit_ids=ids, admit_lengths=lengths,
+                                 admit_mask=np.ones(B, bool))
+    torch.cuda.synchronize()
+    assert fetches() == model.cfg.num_layers
+    assert tuple(blob.shape) == (B, 2 + 4)
+    assert [b.mlp.use_ragged_prefill for b in model.layers] == ["auto"] * model.cfg.num_layers
+
+
+def test_moe_a8_on_card_equals_plain(monkeypatch):
+    """The stacked MoE tree converted to W4A8/W8A8 on the card (int8 cache):
+    one W4A8 launch a body site and one W8A8 a step, no weight-only launch;
+    logits and greedy tokens equal to the run with both A8 kernels plain."""
+    _require_cuda()
+    model, tree = _moe_tree(32)
+    on_card = tree_map(lambda t: t.to("cuda"), convert_to_w4a8(tree))
+    modules = (matmul_w4a8, matmul_w8a8, matmul_w4, matmul_w8)
+    logits, toks, launched = _moe_run(model, on_card, modules, kv_quant=True)
+    assert launched == (6 * 12 * model.cfg.num_layers, 6, 0, 0)
+    monkeypatch.setattr(matmul_w4a8, "w4a8_matmul", matmul_w4a8.w4a8_matmul_plain)
+    monkeypatch.setattr(matmul_w8a8, "w8a8_matmul", matmul_w8a8.w8a8_matmul_plain)
+    plain_logits, plain_toks, plain_launched = _moe_run(model, on_card, modules, kv_quant=True)
+    assert plain_launched == (0, 0, 0, 0)
+    assert torch.equal(logits, plain_logits) and torch.equal(toks, plain_toks)

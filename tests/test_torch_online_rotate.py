@@ -1,7 +1,7 @@
 """QuaRot's online rotations (R2/R3/R4) in the port, held to the JAX package.
 
-Counterpart of ``tests/prepasses/test_online_rotate.py`` (its MoE case waits
-with MoE, ROADMAP.md Queue A item 11). R2 folds the V head-space rotation,
+Counterpart of ``tests/prepasses/test_online_rotate.py``, its MoE case
+included (R4 refused there, R2/R3 exact). R2 folds the V head-space rotation,
 R3 rotates q and k per head after RoPE (the K cache rotated), R4 mixes the
 down_proj input in Hadamard blocks with the transpose folded into the weight.
 Exact in float32 (JAX's tolerance: 2e-4 abs, 1e-4 rel); the stamped matrices
@@ -23,6 +23,7 @@ from onnx_quantize_tpu_torch.engine import InferenceEngine
 from onnx_quantize_tpu_torch.interop import from_jax_params
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
 from onnx_quantize_tpu_torch.models.llama import tiny_llama_config
+from onnx_quantize_tpu_torch.models.moe import tiny_moe_config
 from onnx_quantize_tpu_torch.models.structured import STRUCTURED_GEMMA3, zipf_tokens
 from onnx_quantize_tpu_torch.ops.kernels import mlp_w4
 from onnx_quantize_tpu_torch.prepasses.rotate import (
@@ -250,3 +251,23 @@ def test_fused_mlp_refused_under_silu_and_down_rot(case, monkeypatch):
         stamp_online_rotations(model, qk=False, down=True, block=64)
     want = cfg.num_layers if case == "gelu" else 0
     assert _megakernel_calls(model, fuse_gemma3_projections(q), monkeypatch) == want
+
+
+def test_online_down_rejects_moe():
+    """R4 is refused on an MoE model, applied or stamped; R2/R3 keep its
+    logits (tests/prepasses/test_online_rotate.py:216)."""
+    cfg = tiny_moe_config(num_layers=1)
+    model = Gemma3(cfg)
+    params = model.init(torch.Generator().manual_seed(3))
+    with pytest.raises(NotImplementedError, match="dense MLPs only"):
+        apply_online_rotations(model, copy_tree(params), down=True)
+    with pytest.raises(NotImplementedError, match="dense MLPs only"):
+        stamp_online_rotations(Gemma3(cfg), qk=True, down=True)
+    ids = _ids()
+    ref = _run(model, params, ids)
+    model_r = Gemma3(cfg)
+    rotated = copy_tree(params)
+    apply_online_rotations(model_r, rotated, qk=True, v=True, down=False)
+    np.testing.assert_allclose(_run(model_r, rotated, ids), ref, atol=ATOL, rtol=RTOL)
+    clear_online_rotations(model_r)
+    assert model_r.layers[0].attn.qk_rot is None

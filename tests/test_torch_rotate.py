@@ -1,7 +1,7 @@
 """QuaRot's residual-stream rotation (R1) in the port, held to the JAX package.
 
-Counterpart of ``tests/prepasses/test_rotate.py`` (its MoE case waits with
-MoE, ROADMAP.md Queue A item 11). The fold must be exact in float32 (JAX's
+Counterpart of ``tests/prepasses/test_rotate.py``, its MoE case included
+(the router, every expert and the shared pair fold). The fold must be exact in float32 (JAX's
 own tolerance: 2e-4 abs, 1e-4 rel), refuse architectures whose post-norms
 cannot absorb it, and cut low-bit quantization error on outlier channels.
 Cross-package: the rotation matrices are bit-equal to JAX's (both drawn by
@@ -19,10 +19,13 @@ import onnx_quantize_tpu as joqt
 import onnx_quantize_tpu_torch as oqt
 from onnx_quantize_tpu.models.gemma3 import Gemma3 as JGemma3
 from onnx_quantize_tpu.models.llama import tiny_llama_config as jtiny_llama_config
+from onnx_quantize_tpu.models.moe import tiny_moe_config as jtiny_moe_config
 from onnx_quantize_tpu.prepasses import rotate as jrotate
+from onnx_quantize_tpu.utils import copy_tree as jcopy_tree
 from onnx_quantize_tpu_torch.interop import from_jax_params
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config
 from onnx_quantize_tpu_torch.models.llama import tiny_llama_config
+from onnx_quantize_tpu_torch.models.moe import tiny_moe_config
 from onnx_quantize_tpu_torch.plan import QuantPlan
 from onnx_quantize_tpu_torch.prepasses import rotate
 from onnx_quantize_tpu_torch.prepasses.rotate import (
@@ -285,3 +288,31 @@ def test_rtn_codes_of_rotated_llama_equal_jax(online):
     ids = _ids()
     np.testing.assert_allclose(_run(model, q, ids), np.asarray(jmodel(jq, ids)), atol=1e-4,
                                rtol=0)
+
+
+def test_rotation_preserves_fp_logits_moe():
+    """MoE: the router's logits change basis with the stream, so the routing
+    and the logits stay (tests/prepasses/test_rotate.py:56); the folded
+    weights equal JAX's fold of the same params within float32 rounding."""
+    kw = dict(num_layers=2, shared_expert_size=48)
+    jmodel = JGemma3(jtiny_moe_config(**kw))
+    jparams = jmodel.init(jax.random.key(1))
+    model, params = Gemma3(tiny_moe_config(**kw)), from_jax_params(jparams, device="cpu")
+    ids = _ids()
+    ref = _run(model, params, ids)
+    rot = randomized_hadamard(model.cfg.hidden_size, np.random.default_rng(2))
+    rotated = copy_tree(params)
+    gains = rotate_residual_stream(model, rotated, rot)
+    np.testing.assert_allclose(_run(model, rotated, ids), ref, atol=ATOL, rtol=RTOL)
+    mlp = ("layers.0", "mlp")
+    assert {mlp + ("router",), mlp + ("shared_gate",), mlp + ("experts.3", "up_proj"),
+            mlp + ("shared", "gate_proj")} <= set(gains)
+    jrotated = jcopy_tree(jparams)
+    jrotate.rotate_residual_stream(jmodel, jrotated, rot)
+    for path in (("router",), ("experts.2", "down_proj"), ("shared", "down_proj"),
+                 ("shared_gate",)):
+        got = rotated["layers.1"]["mlp"]
+        want = jrotated["layers.1"]["mlp"]
+        for key in path:
+            got, want = got[key], want[key]
+        np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"]), atol=1e-6)
