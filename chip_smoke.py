@@ -172,6 +172,29 @@ Phases (any failed check exits non-zero; each prints its seconds):
    teacher-forced check. Prints each arm's generated and total tok/s beside
    phase 5's fixed-batch W4 rate, occupancy, rounds and admission rounds,
    latency percentiles and seconds.
+10. Speculative decoding: Gemma-3-1B (published widths: hidden 1152,
+   intermediate 6912, 26 layers, 4 query heads on 1 KV head of 256, vocab
+   262,144), full depth, bf16 from seed 0, W4 g128 body and int8
+   per-channel lm_head, fused, int8 KV, max_seq 512, as the target (its
+   sites are among phase 3's cases at M = 8 and 40). delta is twice the
+   largest |difference| between the target's (B, k+1) verify logits and its
+   one-token steps' over the same prefix; a greedy stream must equal the
+   target-only one or first leave it where the target-only top-2 logits lie
+   within delta. (a) Phase 4's 270M W4 tree with flash decode drafts, k=4,
+   B=8, prompts of 128 seeded ids, 32 new tokens: one round's launches (4
+   draft steps of 72 W4, 1 W8 and 18 flash decode; a verify of 104 W4 and 1
+   W8) counted under ``torch.cuda.set_sync_debug_mode("error")``, the delta
+   rule against target-only ``generate``; prints rounds, mean emitted per
+   live round, ms a round and tok/s beside target-only decode (CUDA
+   events), and one verify's ``write_kv_window`` against the masked
+   ``write_kv``. (b) The 1B tree drafting for itself: at least 0.9 k
+   emitted a live round, and the delta rule. (c) Both trees converted to
+   W4A8/W8A8, B=4: greedy and sampled streams and a blob equal to the run
+   with both kernels plain, two sampled runs from one seed equal. (d)
+   ``SpeculativeScheduler`` with (b)'s pair, rounds 4, over phase 9's first
+   16 requests: every request done within its budget, the stats consistent,
+   the delta rule against the ``ContinuousBatchingScheduler`` over the
+   target alone; tok/s of both. Prints its seconds and peak memory.
 
 Phase 8 counts the device operations (as the nodes of a CUDA graph
 captured from one call) of the activation quantizer, the zero pad of its
@@ -359,6 +382,9 @@ BF16_LIBRARY = {"w4": ("_weight_int4pack_mm", int4pack_ms),
 # W4 rows of M: decode sizes around the plan's tile edges (the K split), a
 # scoring window (2048) and a 32x128 prefill (4096), both without a split.
 W4_ROWS = (1, 16, 32, 33, 64, 65, 2048, 4096)
+# The rows of M of phase 10's target: a decode step at B = 8 and a verify of
+# 8 x (k + 1) tokens.
+SPEC_ROWS = (8, 40)
 # name, kernel, K, N, dtype, group_size, symmetric, rows of M, timed
 KERNEL_CASES = [
     ("qkv", "w4", 640, 1536, "uint4", 128, False, W4_ROWS, True),
@@ -393,6 +419,14 @@ KERNEL_CASES = [
     # K = 1024 (64 resident x rows), with ragged M and N edges.
     ("odd_w8_u8_asym_n65552", "w8", 640, 65552, "uint8", -1, False, (400,), False),
     ("odd_w8_i8_k1024_n65552", "w8", 1024, 65552, "int8", -1, True, (200,), False),
+    # Phase 10's target, Gemma-3-1B: its four W4 body sites (K = 1152 is 9
+    # groups, a pad group in the group-pair layout; N = 1536 and 13824) and
+    # its W8 lm_head, at a step of B = 8 and a verify of 8 x (k + 1) = 40 rows.
+    ("gemma3_1b_qkv", "w4", 1152, 1536, "uint4", 128, False, SPEC_ROWS, False),
+    ("gemma3_1b_o", "w4", 1024, 1152, "uint4", 128, False, SPEC_ROWS, False),
+    ("gemma3_1b_gate_up", "w4", 1152, 13824, "uint4", 128, False, SPEC_ROWS, False),
+    ("gemma3_1b_down", "w4", 6912, 1152, "uint4", 128, False, SPEC_ROWS, False),
+    ("gemma3_1b_lm_head", "w8", 1152, 262144, "int8", -1, True, SPEC_ROWS, False),
     # The A8 arm's sites (dynamic int8 activations): W4A8 on the body, W8A8
     # on the lm_head, also at a scoring window's M=2048; then odd shapes: a
     # pad group with a ragged N, int4 with ragged M, uint8 symmetric (shifted
@@ -1895,9 +1929,17 @@ def run_moe_kernel_checks(gen, card) -> dict:
     check(torch.equal(got, again), "moe flash decode: two launches differ")
     fd_ms = cuda_time_ms(lambda: fd.flash_decode_int8(*args, window=None), 50)
     fd_plain = cuda_time_ms(lambda: fd.flash_decode_int8_reference(*args, window=None), 20)
+    # The bound as phase 3's: the live cache rows' codes and scales, the
+    # queries, positions and output once; QK and PV over the live rows.
+    q, k, ks, v, vs, pos_t = args
+    rows = live_rows(pos_t, k.shape[1], None)
+    fd_bound, fd_by = bound(nbytes(q, pos_t, got) + rows * nbytes(k[0, 0], v[0, 0], ks[0, 0],
+                                                                   vs[0, 0]),
+                            4 * rows * q.shape[1] * q.shape[2], "float32")
     print(f"kernel flash_decode fd_moe_B32_S512_g1_D128 (one layer, pos 128-159) on {card}: "
           f"max_abs_err={err:.3e} splits={plan.splits} blocks={plan.blocks} "
-          f"kernel_ms={fd_ms:.4f} plain_ms={fd_plain:.4f}", flush=True)
+          f"kernel_ms={fd_ms:.4f} plain_ms={fd_plain:.4f} bound_ms={fd_bound:.5f} ({fd_by})",
+          flush=True)
     fa = run_window_flash_attention(gen, "fa_moe_T2048_g1_D128", 16, 16, 128, 24)
     return {"w4": rows, "flash_attention": fa}
 
@@ -2942,6 +2984,379 @@ def run_serving(model, qparams, a8params, card: str, fixed_rate: float) -> dict:
     return launches
 
 
+# -- phase 10: speculative decoding at Gemma-3-1B's width ---------------------------
+
+SPEC_BATCH, SPEC_MAX_SEQ, SPEC_K = 8, 512, 4
+SPEC_PROMPT, SPEC_NEW = 128, 32
+SPEC_A8_BATCH, SPEC_A8_NEW = 4, 16
+SPEC_SERVE_REQUESTS, SPEC_SERVE_ROUNDS = 16, 4
+# (b)'s bar: a self-draft proposes target-only's own stream, so a live round
+# emits k tokens (k - 1 accepted drafts and the target's own) but where the
+# verify's argmax and the step's part at a near tie, and where the budget cuts
+# the last round; 0.9 k leaves room for that and nothing else.
+SPEC_SELF_EMITTED_MIN = 0.9
+
+
+def build_gemma3_1b():
+    """Gemma-3-1B (published widths, full depth) in bf16 from a seeded init at
+    the port's initializer scale (phase 4's), W4 g128 body and int8
+    per-channel lm_head, fused; returns (model, tree)."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.models.gemma3 import (
+        GEMMA3_1B,
+        Gemma3,
+        fuse_gemma3_projections,
+    )
+
+    model = Gemma3(dataclasses.replace(GEMMA3_1B, dtype="bfloat16"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    tree, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=128), ignore=["lm_head"]))
+    del params
+    tree, _ = oqt.quantize(model, tree, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    return model, fuse_gemma3_projections(tree)
+
+
+def spec_engine(model, tree, batch: int = SPEC_BATCH, fused: bool = False):
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+
+    return InferenceEngine(model, tree, max_batch=batch, max_seq=SPEC_MAX_SEQ, kv_quant=True,
+                           dtype=torch.bfloat16, fused_attention=fused)
+
+
+def no_host_sync(fn):
+    """``fn()`` with any host sync an error (``torch.cuda.set_sync_debug_mode``)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def prefilled(engine, prompts):
+    """A fresh cache with ``prompts`` prefilled; (cache, first tokens on the
+    device, host ids, host lengths)."""
+    B = engine.max_batch
+    ids = np.zeros((B, max(len(p) for p in prompts)), np.int32)
+    lengths = np.ones((B,), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+        lengths[i] = len(p)
+    cache, _, first = engine.prefill(engine.new_cache(), ids, lengths, with_tokens=True)
+    return cache, first, ids, lengths
+
+
+def verify_step_delta(spec, prompts, stream) -> float:
+    """The largest |difference| between the target's verify logits over
+    [s_0..s_k] (one (B, k+1) forward) and its one-token steps' logits over the
+    same prefix (target-only's own stream ``stream``)."""
+    eng, k = spec.target, spec.k
+    toks = torch.tensor([s[:k + 1] for s in stream], dtype=torch.int64, device="cuda")
+    cache, _, _, _ = prefilled(eng, prompts)
+    steps = []
+    for j in range(k + 1):
+        _, logits = eng.decode(cache, toks[:, j])
+        steps.append(logits.float())
+    cache, _, _, _ = prefilled(eng, prompts)
+    with torch.inference_mode():
+        verify = spec._verify(cache, toks, torch.ones((len(prompts),), dtype=torch.bool,
+                                                      device="cuda"))
+    return max(float((verify[:, j].float() - steps[j]).abs().max()) for j in range(k + 1))
+
+
+def first_divergences(got: list[list[int]], want: list[list[int]]) -> list[tuple[int, int]]:
+    """(row, index) of each row's first token where ``got`` leaves ``want``."""
+    out = []
+    for row, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            out.append((row, next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                                  min(len(g), len(w)))))
+    return out
+
+
+def top2_gaps(engine, prefixes: list[list[int]]) -> list[float]:
+    """The gap between the two largest next-token logits after each prefix
+    (prefilled in batches of the engine's rows)."""
+    gaps = []
+    B = engine.max_batch
+    for start in range(0, len(prefixes), B):
+        chunk = prefixes[start:start + B]
+        ids = np.zeros((B, max(len(p) for p in chunk)), np.int32)
+        lengths = np.ones((B,), np.int32)
+        for i, p in enumerate(chunk):
+            ids[i, :len(p)] = p
+            lengths[i] = len(p)
+        _, logits = engine.prefill(engine.new_cache(), ids, lengths)
+        top = logits.float().topk(2, dim=-1).values
+        gaps += (top[:, 0] - top[:, 1]).cpu().tolist()[:len(chunk)]
+    return gaps
+
+
+def check_delta_rule(label: str, engine, prompts, got, want, delta: float) -> int:
+    """Every row of ``got`` equals ``want`` (the target-only stream), or its
+    first differing token lies where ``want``'s two largest logits are within
+    ``delta``. Prints each divergence and its gap; returns their count."""
+    div = first_divergences(got, want)
+    gaps = top2_gaps(engine, [list(prompts[r]) + list(want[r][:j]) for r, j in div])
+    for (row, j), gap in zip(div, gaps):
+        print(f"spec {label}: row {row} leaves the target-only stream at token {j} "
+              f"({got[row][j] if j < len(got[row]) else 'end'} vs "
+              f"{want[row][j] if j < len(want[row]) else 'end'}), top-2 gap {gap:.5f}, "
+              f"delta {delta:.5f}", flush=True)
+        check(gap <= delta, f"spec {label}: row {row} diverges at token {j} where the "
+                            f"target-only top-2 gap {gap:.5f} exceeds delta {delta:.5f}")
+    return len(div)
+
+
+def window_write_ms(engine, B: int, T: int) -> tuple[float, float]:
+    """CUDA-event times of one verify's K/V writes into the int8 cache (every
+    layer, B rows of T at per-row offsets): ``write_kv_window`` against the
+    masked ``write_kv`` at the same positions."""
+    from onnx_quantize_tpu_torch.engine.kv_cache import write_kv, write_kv_window
+
+    cfg = engine.model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cache = engine.new_cache()
+    k = torch.randn((B, T, cfg.num_kv_heads, cfg.head_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    v = torch.randn(k.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    start = torch.arange(B, dtype=torch.int32, device="cuda") * 37 + 100
+    ok = torch.ones((B,), dtype=torch.bool, device="cuda")
+    positions = start[:, None] + torch.arange(T, dtype=torch.int32, device="cuda")[None, :]
+    mask = ok[:, None].expand(B, T)
+
+    def window():
+        for layer in range(cfg.num_layers):
+            write_kv_window(cache, layer, k, v, start, ok)
+
+    def masked():
+        for layer in range(cfg.num_layers):
+            write_kv(cache, layer, k, v, positions, mask)
+
+    return cuda_time_ms(window, 20), cuda_time_ms(masked, 20)
+
+
+def spec_rate(spec, prompts, budget: int) -> tuple[float, float, float]:
+    """Decode alone, CUDA events around it: ``spec.decode`` over the rounds a
+    ``budget``-token stream needs at worst, against the target-only engine's
+    ``decode_multi`` of the same tokens from the same prefill. Returns
+    (speculative ms per round, its generated tok/s, target-only tok/s)."""
+    tgt, dft, k = spec.target, spec.draft, spec.k
+    B = len(prompts)
+    rounds = -(-budget // k)
+    budgets = torch.full((tgt.max_batch,), budget, dtype=torch.int32, device="cuda")
+    t_cache, first, ids, lengths = prefilled(tgt, prompts)
+    d_cache, _ = dft.prefill(dft.new_cache(), ids, lengths)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _, _, blob = spec.decode(t_cache, d_cache, first, rounds, budgets=budgets)
+    end.record()
+    torch.cuda.synchronize()
+    spec_ms = start.elapsed_time(end)
+    emitted = int(blob[:B, :, k].sum())
+    t_cache, first, _, _ = prefilled(tgt, prompts)
+    torch.cuda.synchronize()
+    start.record()
+    tgt.decode_multi(t_cache, first, budget)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    return spec_ms / rounds, emitted / spec_ms * 1e3, B * budget / plain_ms * 1e3
+
+
+def run_speculative(draft_model, draft_tree, card: str) -> dict:
+    """Phase 10: speculative decoding with Gemma-3-1B as the target, at
+    published widths and full depth. Returns the launches of its arms."""
+    from onnx_quantize_tpu_torch.engine import (
+        ContinuousBatchingScheduler,
+        SpeculativeDecoder,
+        SpeculativeScheduler,
+    )
+    from onnx_quantize_tpu_torch.ops import convert_to_w4a8
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4a8, matmul_w8a8
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, tree = build_gemma3_1b()
+    cfg, dcfg, k = model.cfg, draft_model.cfg, SPEC_K
+    V = cfg.vocab_size
+    check(dcfg.vocab_size == V, "the draft and the target must share a vocabulary")
+    launches = {name: 0 for name in kernel_modules()}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        return out, counts
+
+    prompts = np.random.default_rng(SEED + 10).integers(
+        1, V, (SPEC_BATCH, SPEC_PROMPT)).tolist()
+    target = spec_engine(model, tree)
+    want, _ = counted(lambda: target.generate(prompts, max_new_tokens=SPEC_NEW))
+    check(all(len(o) == SPEC_NEW and all(0 <= t < V for t in o) for o in want),
+          "spec: target-only generate returned a short row or an id out of range")
+
+    # (a) the published pairing: the 270M W4 tree with flash decode drafts.
+    draft = spec_engine(draft_model, draft_tree, fused=True)
+    spec = SpeculativeDecoder(target, draft, k=k)
+    delta = 2 * verify_step_delta(spec, prompts, want)
+    print(f"spec: delta = 2 x the largest |verify - step| logit difference over the same "
+          f"prefix (B={SPEC_BATCH}, {k + 1} positions) = {delta:.5f}", flush=True)
+    t_cache, first, ids, lengths = prefilled(target, prompts)
+    d_cache, _ = draft.prefill(draft.new_cache(), ids, lengths)
+    budgets = torch.full((SPEC_BATCH,), SPEC_NEW, dtype=torch.int32, device="cuda")
+    reset_counts()
+    no_host_sync(lambda: spec.decode(t_cache, d_cache, first, 1, budgets=budgets))
+    torch.cuda.synchronize()
+    one_round = kernel_counts()
+    draft_step = {"w4": 4 * dcfg.num_layers, "w8": 1, "flash_decode": dcfg.num_layers}
+    verify = {"w4": 4 * cfg.num_layers, "w8": 1}
+    round_want = {name: k * draft_step.get(name, 0) + verify.get(name, 0)
+                  for name in kernel_modules()}
+    check(one_round == round_want,
+          f"spec (a): one round launched {one_round}, expected {k} draft steps of "
+          f"{draft_step} and a verify of {verify}")
+    # A draft step and a verify alone, on the same (now advanced) caches.
+    reset_counts()
+    draft.decode(d_cache, first)
+    torch.cuda.synchronize()
+    step_counts = {name: n for name, n in kernel_counts().items() if n}
+    reset_counts()
+    with torch.inference_mode():
+        spec._verify(t_cache, first.long()[:, None].expand(-1, k + 1),
+                     torch.ones((SPEC_BATCH,), dtype=torch.bool, device="cuda"))
+    torch.cuda.synchronize()
+    verify_counts = {name: n for name, n in kernel_counts().items() if n}
+    check(step_counts == draft_step and verify_counts == verify,
+          f"spec (a): a draft step launched {step_counts} (expected {draft_step}), a verify "
+          f"{verify_counts} (expected {verify})")
+    print(f"spec (a): one round, under sync debug mode 'error' (no host sync), launched "
+          f"{one_round}: {k} draft steps of {step_counts} and a verify of {verify_counts}",
+          flush=True)
+    got, _ = counted(lambda: spec.generate(prompts, max_new_tokens=SPEC_NEW))
+    check(all(len(o) == SPEC_NEW and all(0 <= t < V for t in o) for o in got),
+          "spec (a): a row missed its budget or an id is out of range")
+    div = check_delta_rule("(a)", target, prompts, got, want, delta)
+    stats = spec.stats
+    round_ms, rate, plain_rate = spec_rate(spec, prompts, SPEC_NEW - 1)
+    win_ms, masked_ms = window_write_ms(target, SPEC_BATCH, k + 1)
+    print(f"spec (a) Gemma-3-270M W4 + flash decode drafting for Gemma-3-1B W4, k={k}, "
+          f"B={SPEC_BATCH}, prompts {SPEC_PROMPT}, {SPEC_NEW} new tokens on {card}: rounds "
+          f"{stats['rounds']}, mean emitted per live round "
+          f"{stats['emitted'] / stats['live_rounds']:.3f}, rows leaving the target-only "
+          f"stream {div} of {SPEC_BATCH}; decode alone (CUDA events) {round_ms:.2f} ms a round, "
+          f"generated tok/s {rate:.1f}, target-only decode tok/s {plain_rate:.1f} (ratio "
+          f"{rate / plain_rate:.3f}); one verify's K/V writes ({cfg.num_layers} layers, "
+          f"B={SPEC_BATCH}, T={k + 1}): write_kv_window {win_ms:.4f} ms, masked write_kv "
+          f"{masked_ms:.4f} ms", flush=True)
+    del spec, draft, t_cache, d_cache
+
+    # (b) self-draft: two engines over the 1B W4 tree.
+    self_draft = spec_engine(model, tree)
+    spec = SpeculativeDecoder(target, self_draft, k=k)
+    got, _ = counted(lambda: spec.generate(prompts, max_new_tokens=SPEC_NEW))
+    div = check_delta_rule("(b)", target, prompts, got, want, delta)
+    stats = spec.stats
+    mean = stats["emitted"] / stats["live_rounds"]
+    round_ms, rate, plain_rate = spec_rate(spec, prompts, SPEC_NEW - 1)
+    print(f"spec (b) Gemma-3-1B W4 drafting for itself, k={k}, B={SPEC_BATCH} on {card}: "
+          f"rounds {stats['rounds']}, mean emitted per live round {mean:.3f} (bar "
+          f"{SPEC_SELF_EMITTED_MIN * k:.1f}), rows leaving the target-only stream {div}; "
+          f"decode alone {round_ms:.2f} ms a round, generated tok/s {rate:.1f}, target-only "
+          f"{plain_rate:.1f} (ratio {rate / plain_rate:.3f})", flush=True)
+    check(mean >= SPEC_SELF_EMITTED_MIN * k,
+          f"spec (b): a self-draft emitted {mean:.3f} a live round, under "
+          f"{SPEC_SELF_EMITTED_MIN} x k: the verify and the step disagree beyond ties")
+
+    # (c) the A8 trees: W4A8 bodies and W8A8 heads, against the plain versions.
+    a8_prompts = prompts[:SPEC_A8_BATCH]
+    spec_a8 = SpeculativeDecoder(spec_engine(model, convert_to_w4a8(tree), SPEC_A8_BATCH),
+                                 spec_engine(draft_model, convert_to_w4a8(draft_tree),
+                                             SPEC_A8_BATCH), k=k)
+
+    def a8_run():
+        greedy = spec_a8.generate(a8_prompts, max_new_tokens=SPEC_A8_NEW)
+        t_cache, first, ids, lengths = prefilled(spec_a8.target, a8_prompts)
+        d_cache, _ = spec_a8.draft.prefill(spec_a8.draft.new_cache(), ids, lengths)
+        budgets = torch.full((SPEC_A8_BATCH,), 12, dtype=torch.int32, device="cuda")
+        _, _, blob = no_host_sync(lambda: spec_a8.decode(t_cache, d_cache, first, 3,
+                                                         budgets=budgets))
+        sampled = [spec_a8.generate(a8_prompts, max_new_tokens=SPEC_A8_NEW, temperature=0.8,
+                                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+                   for _ in range(2)]
+        return greedy, blob.cpu(), sampled
+
+    (greedy, blob, sampled), a8_counts = counted(a8_run)
+    check(a8_counts["w4a8"] > 0 and a8_counts["w8a8"] > 0
+          and sum(a8_counts.values()) == a8_counts["w4a8"] + a8_counts["w8a8"],
+          f"spec (c): the A8 arm launched {a8_counts}, expected W4A8 and W8A8 and no other")
+    check(sampled[0] == sampled[1], "spec (c): two sampled runs from one seed differ")
+    reset_counts()
+    with plain_kernels([matmul_w4a8, matmul_w8a8]):
+        p_greedy, p_blob, p_sampled = a8_run()
+    torch.cuda.synchronize()
+    check(kernel_counts()["w4a8"] == 0 and kernel_counts()["w8a8"] == 0,
+          "spec (c): the plain run launched an A8 kernel")
+    check(greedy == p_greedy and torch.equal(blob, p_blob) and sampled == p_sampled,
+          "spec (c): the A8 kernels' streams or blob differ from the plain versions'")
+    print(f"spec (c) W4A8/W8A8 target and draft, k={k}, B={SPEC_A8_BATCH}, {SPEC_A8_NEW} new "
+          f"tokens: greedy and sampled (temperature 0.8) streams and a 3-round blob equal to "
+          f"the plain versions'; two sampled runs from one seed equal; launches "
+          f"{a8_counts}", flush=True)
+    del spec_a8
+
+    # (d) the speculative scheduler with (b)'s pair over phase 9's load.
+    load = serving_load(V)[:SPEC_SERVE_REQUESTS]
+    sched = SpeculativeScheduler(spec, rounds=SPEC_SERVE_ROUNDS,
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+    def serve_spec():
+        handles = [sched.submit(p, max_new_tokens=m) for p, m in load]
+        sched.run()
+        return handles
+
+    (handles, seconds), _ = counted(lambda: timed(serve_spec))
+    check(all(r.done for r in handles), "spec (d): a request did not finish")
+    for r in handles:
+        check(all(0 <= t < V for t in r.output), "spec (d): an id out of range")
+        room = len(r.prompt) + len(r.output) + k + 1 > SPEC_MAX_SEQ
+        check(len(r.output) == r.max_new_tokens or room,
+              f"spec (d): request {r.request_id} emitted {len(r.output)} of {r.max_new_tokens}")
+    st = sched.stats
+    check(st["emitted"] == sum(len(r.output) - 1 for r in handles)
+          and st["live_rounds"] <= st["emitted"] <= k * st["live_rounds"],
+          f"spec (d): stats {st} disagree with the outputs")
+    cb = ContinuousBatchingScheduler(target, chunk=16)
+    cb.narrow_admit = False  # masked admission, as the speculative scheduler's
+
+    def serve_cb():
+        cb_handles = [cb.submit(p, max_new_tokens=m) for p, m in load]
+        cb.run()
+        return cb_handles
+
+    cb_handles, cb_seconds = timed(serve_cb)
+    div = check_delta_rule("(d)", target, [r.prompt for r in cb_handles],
+                           [r.output for r in handles], [r.output for r in cb_handles], delta)
+    generated = sum(len(r.output) for r in handles)
+    cb_generated = sum(len(r.output) for r in cb_handles)
+    print(f"spec (d) SpeculativeScheduler, (b)'s pair, rounds {SPEC_SERVE_ROUNDS}, k={k}, "
+          f"B={SPEC_BATCH}, {SPEC_SERVE_REQUESTS} requests on {card}: {seconds:.2f} s, generated "
+          f"tok/s {generated / seconds:.1f}, stats {st} (mean emitted per live round "
+          f"{st['emitted'] / st['live_rounds']:.3f}); ContinuousBatchingScheduler over the "
+          f"target alone (chunk 16, masked admission) {cb_seconds:.2f} s, generated tok/s "
+          f"{cb_generated / cb_seconds:.1f}; requests leaving its stream {div}", flush=True)
+    print(f"phase 10 speculative decoding on {card}: {time.perf_counter() - t_phase:.1f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3199,6 +3614,12 @@ def main() -> int:
     for key, n in run_serving(model, qparams, a8params, card, rate_q).items():
         launches[key] += n
     phase_done("9 serving")
+
+    # Phase 10: speculative decoding, phase 4's 270M W4 tree drafting for
+    # Gemma-3-1B at full width.
+    for key, n in run_speculative(model, qparams, card).items():
+        launches[key] += n
+    phase_done("10 speculative decoding")
 
     # name in the kernels line, CUDA source, replaced TPU kernel.
     sources = {

@@ -10,6 +10,7 @@ on CPU tensors. Module paths mirror the JAX package ``onnx_quantize_tpu``;
 this package never imports JAX.
 """
 
+from onnx_quantize_tpu_torch._logging import set_log_level
 from onnx_quantize_tpu_torch.core.dtypes import QuantType
 from onnx_quantize_tpu_torch.core.enums import QFormat, QuantizationStrategy
 from onnx_quantize_tpu_torch.core.qconfig import (
@@ -31,4 +32,5 @@ __all__ = [
     "quantize", "QConfig", "QuantType", "QWeightArgs", "QActivationArgs", "QFormat",
     "QuantizationStrategy", "RTNConfig", "GPTQConfig", "HqqConfig", "AwqConfig",
     "RotateConfig", "SmoothQuantConfig", "CalibrationParams", "QTensor", "QTensorMeta",
+    "set_log_level",
 ]

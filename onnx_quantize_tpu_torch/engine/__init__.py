@@ -7,7 +7,10 @@ from onnx_quantize_tpu_torch.engine.sampling import (
     sample_batch,
 )
 from onnx_quantize_tpu_torch.engine.scheduler import ContinuousBatchingScheduler, Request
+from onnx_quantize_tpu_torch.engine.spec_scheduler import SpeculativeScheduler
+from onnx_quantize_tpu_torch.engine.speculative import SpeculativeDecoder
 
 __all__ = ["InferenceEngine", "prepare_kernel_scales", "KVCacheConfig", "init_cache",
            "SamplingParams", "sample", "sample_batch", "batch_sampling_arrays",
-           "ContinuousBatchingScheduler", "Request"]
+           "ContinuousBatchingScheduler", "Request", "SpeculativeDecoder",
+           "SpeculativeScheduler"]

@@ -27,8 +27,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["KVCacheConfig", "QuantizedKV", "init_cache", "write_kv", "write_kv_rows",
-           "admitted_rows", "read_kv", "read_kv_quantized", "pack_nibbles", "unpack_nibbles"]
+__all__ = ["KVCacheConfig", "QuantizedKV", "init_cache", "write_kv", "write_kv_window",
+           "write_kv_rows", "admitted_rows", "read_kv", "read_kv_quantized", "pack_nibbles", "unpack_nibbles"]
 
 
 @dataclasses.dataclass
@@ -158,6 +158,28 @@ def write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
     else:
         _masked_write(cache["k"], layer, k, positions, mask)
         _masked_write(cache["v"], layer, v, positions, mask)
+
+
+def write_kv_window(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
+                    start: torch.Tensor, ok: torch.Tensor) -> None:
+    """Write K/V rows (B, T, H_kv, D) of ``layer`` into per-row contiguous
+    windows at offsets ``start`` (B,), in place (the speculative verify's
+    write).
+
+    Rows with ``ok`` (B,) False, and rows whose window would run past S,
+    keep their old window: the window's start is clamped to S - T and the
+    row writes back what it read there, as the reference blends the old
+    window back at the clamped start. Float, int8 and int4 caches quantize
+    and pack as :func:`write_kv` does. The (B, T) indices are built on the
+    device, so nothing waits on the host."""
+    B, T = k.shape[:2]
+    S = cache["k"].shape[2]
+    if T > S:
+        raise ValueError(f"a window of {T} rows does not fit a cache of {S}")
+    ok = ok & (start + T <= S)
+    positions = (start.clamp(0, S - T)[:, None]
+                 + torch.arange(T, dtype=start.dtype, device=start.device)[None, :])
+    write_kv(cache, layer, k, v, positions, ok[:, None].expand(B, T))
 
 
 def admitted_rows(slots, batch: int, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["SamplingParams", "sample", "sample_batch", "batch_sampling_arrays"]
+__all__ = ["SamplingParams", "sample", "sample_batch", "batch_sampling_arrays", "gumbel_argmax"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +41,9 @@ def _masked_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor
     outside the top-p nucleus."""
     logits = logits / params.temperature
     if params.top_k > 0:
-        kth = torch.topk(logits, params.top_k, dim=-1).values[:, -1:]
+        # A top_k past the vocabulary keeps every logit: the reference's
+        # index into the sorted row clamps to its smallest entry.
+        kth = torch.topk(logits, min(params.top_k, logits.shape[-1]), dim=-1).values[:, -1:]
         logits = torch.where(logits < kth, float("-inf"), logits)
     if params.top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
@@ -95,10 +97,15 @@ def sample_batch(logits: torch.Tensor, generator: torch.Generator | None,
     if not need_temp:
         return greedy
     x = _masked_rows(logits, temps, top_ks, top_ps, need_topk, need_topp)
+    return torch.where(temps <= 0.0, greedy, gumbel_argmax(x, generator))
+
+
+def gumbel_argmax(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """One categorical draw per row of float32 (B, V) logits: Gumbel-max,
+    one uniform per position from ``generator``; (B,) int64."""
     u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
-    sampled = torch.argmax(x + gumbel, dim=-1)
-    return torch.where(temps <= 0.0, greedy, sampled)
+    return torch.argmax(x + gumbel, dim=-1)
 
 
 def _masked_rows(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,

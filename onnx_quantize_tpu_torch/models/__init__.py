@@ -1,4 +1,6 @@
 from onnx_quantize_tpu_torch.models.gemma3 import (
+    GEMMA3_1B,
+    GEMMA3_4B,
     GEMMA3_270M,
     Gemma3,
     Gemma3Config,
@@ -23,7 +25,8 @@ from onnx_quantize_tpu_torch.models.moe import (
     tiny_moe_config,
 )
 
-__all__ = ["Gemma3", "Gemma3Config", "Gemma3MoEMLP", "GEMMA3_270M", "fuse_gemma3_projections",
+__all__ = ["Gemma3", "Gemma3Config", "Gemma3MoEMLP", "GEMMA3_270M", "GEMMA3_1B", "GEMMA3_4B",
+           "fuse_gemma3_projections",
            "Llama", "llama_config", "tiny_llama_config", "LLAMA32_1B", "LLAMA32_3B", "QWEN25_05B",
            "MoE", "moe_config", "tiny_moe_config", "QWEN15_MOE_A27B", "MIXTRAL_8X7B",
            "stack_moe_experts", "fuse_moe_experts"]

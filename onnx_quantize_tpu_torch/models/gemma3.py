@@ -49,8 +49,9 @@ from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode, m
 from onnx_quantize_tpu_torch.ops.reference import dequantize_weight
 from onnx_quantize_tpu_torch.utils import copy_tree
 
-__all__ = ["Gemma3Config", "Gemma3", "Gemma3MoEMLP", "GEMMA3_270M", "make_attention_mask",
-           "fuse_gemma3_projections", "glu_activation", "stacked_expert_mlp"]
+__all__ = ["Gemma3Config", "Gemma3", "Gemma3MoEMLP", "GEMMA3_270M", "GEMMA3_1B", "GEMMA3_4B",
+           "make_attention_mask", "fuse_gemma3_projections", "glu_activation",
+           "stacked_expert_mlp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +116,26 @@ class Gemma3Config:
 
 
 GEMMA3_270M = Gemma3Config()
+
+# Larger text-model configs in the family (same architecture knobs).
+GEMMA3_1B = Gemma3Config(
+    hidden_size=1152,
+    intermediate_size=6912,
+    num_layers=26,
+    num_heads=4,
+    num_kv_heads=1,
+    head_dim=256,
+)
+
+GEMMA3_4B = Gemma3Config(
+    hidden_size=2560,
+    intermediate_size=10240,
+    num_layers=34,
+    num_heads=8,
+    num_kv_heads=4,
+    head_dim=256,
+    sliding_window=1024,
+)
 
 
 def _rotation_tensor(module: Module, name: str, like: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,7 @@ from onnx_quantize_tpu_torch.engine import (
     ContinuousBatchingScheduler,
     InferenceEngine,
     SamplingParams,
+    SpeculativeDecoder,
     prepare_kernel_scales,
 )
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
@@ -915,12 +916,12 @@ def test_quarot_llama_checkpoint_on_card_is_bit_equal(tmp_path):
 SERVE_PREFIX = [7, 3, 99, 12, 5, 44, 21, 300, 411, 2, 17]
 
 
-def _serving_tree(a8: bool):
+def _serving_tree(a8: bool, seed: int = 0):
     """The tiny model at head_dim 128 (flash decode's width), uint4 g64 body
     and int8 head, fused; the whole of it converted to W4A8/W8A8 when ``a8``."""
     cfg = Gemma3Config.tiny(**TINY128, intermediate_size=256, vocab_size=512)
     model = Gemma3(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(seed))
     params, _ = oqt.quantize(model, params, oqt.QConfig(
         weights=oqt.QWeightArgs(dtype="uint4", group_size=64), ignore=["lm_head"]))
     params, _ = oqt.quantize(model, params, oqt.QConfig(
@@ -1134,3 +1135,123 @@ def test_moe_a8_on_card_equals_plain(monkeypatch):
     plain_logits, plain_toks, plain_launched = _moe_run(model, on_card, modules, kv_quant=True)
     assert plain_launched == (0, 0, 0, 0)
     assert torch.equal(logits, plain_logits) and torch.equal(toks, plain_toks)
+
+
+# -- speculative decoding on the card ---------------------------------------------
+
+SPEC_PROMPTS = np.random.default_rng(6).integers(1, 512, (4, 20)).tolist()
+
+
+def _spec(target_tree, draft_tree, model, fused_draft=True, k=3):
+    def engine(tree, fused=False):
+        return InferenceEngine(model, tree, max_batch=4, max_seq=128, kv_quant=True,
+                               fused_attention=fused)
+
+    return SpeculativeDecoder(engine(target_tree), engine(draft_tree, fused_draft), k=k)
+
+
+def _delta(spec, stream):
+    """Twice the largest |verify - step| logit difference over the same
+    prefix: the target's (B, k+1) verify against its k+1 one-token steps."""
+    eng, k = spec.target, spec.k
+    toks = torch.tensor([s[:k + 1] for s in stream], device="cuda")
+    ids = torch.tensor(SPEC_PROMPTS, device="cuda")
+    lengths = np.full((4,), ids.shape[1], np.int32)
+    cache, _ = eng.prefill(eng.new_cache(), ids, lengths)
+    steps = [eng.decode(cache, toks[:, j])[1] for j in range(k + 1)]
+    cache, _ = eng.prefill(eng.new_cache(), ids, lengths)
+    with torch.inference_mode():
+        verify = spec._verify(cache, toks, torch.ones(4, dtype=torch.bool, device="cuda"))
+    return 2 * max(float((verify[:, j] - steps[j]).abs().max()) for j in range(k + 1))
+
+
+def _gap(eng, prefix):
+    ids = np.zeros((4, len(prefix)), np.int32)
+    ids[0] = prefix
+    _, logits = eng.prefill(eng.new_cache(), ids, np.full((4,), len(prefix), np.int32))
+    top = logits[0].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def test_speculative_on_card_follows_target_by_delta_rule():
+    """The tiny speculative decoder on the card (an adversarial draft with
+    flash decode, and a self-draft) against the card's target-only
+    ``generate``: every row equal, or its first differing token where the
+    target-only top-2 logits lie within delta (twice the verify-vs-step
+    difference measured here). The draft's steps launch flash decode."""
+    _require_cuda()
+    model, tree = _serving_tree(a8=False)
+    _, other = _serving_tree(a8=False, seed=1)
+    target, adversarial = (tree_map(lambda t: t.to("cuda"), t) for t in (tree, other))
+    for draft, fused in ((adversarial, True), (target, False)):
+        spec = _spec(target, draft, model, fused_draft=fused)
+        want = spec.target.generate(SPEC_PROMPTS, max_new_tokens=12)
+        delta = _delta(spec, want)
+        before = flash_decode.launches
+        got = spec.generate(SPEC_PROMPTS, max_new_tokens=12)
+        torch.cuda.synchronize()
+        assert (flash_decode.launches > before) == fused
+        assert all(len(o) == 12 and all(0 <= t < 512 for t in o) for o in got)
+        for row, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+                assert _gap(spec.target, SPEC_PROMPTS[row] + w[:j]) <= delta, (row, j, delta)
+
+
+def test_speculative_a8_on_card_equals_plain(monkeypatch):
+    """The A8 trees (W4A8 bodies, W8A8 heads) as target and draft: greedy and
+    sampled streams launch both A8 kernels and equal the run with the two
+    kernels swapped for their plain versions; one seed repeats the sampled
+    stream."""
+    _require_cuda()
+    model, tree = _serving_tree(a8=True)
+    _, other = _serving_tree(a8=True, seed=1)
+    target, draft = (tree_map(lambda t: t.to("cuda"), t) for t in (tree, other))
+
+    def run():
+        spec = _spec(target, draft, model, fused_draft=False)
+        greedy = spec.generate(SPEC_PROMPTS, max_new_tokens=10)
+        sampled = [spec.generate(SPEC_PROMPTS, max_new_tokens=10, temperature=0.8,
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+                   for _ in range(2)]
+        return greedy, sampled
+
+    before = matmul_w4a8.launches, matmul_w8a8.launches
+    greedy, sampled = run()
+    torch.cuda.synchronize()
+    assert matmul_w4a8.launches > before[0] and matmul_w8a8.launches > before[1]
+    assert sampled[0] == sampled[1]
+    monkeypatch.setattr(matmul_w4a8, "w4a8_matmul", matmul_w4a8.w4a8_matmul_plain)
+    monkeypatch.setattr(matmul_w8a8, "w8a8_matmul", matmul_w8a8.w8a8_matmul_plain)
+    counts = matmul_w4a8.launches, matmul_w8a8.launches
+    assert run() == (greedy, sampled)
+    assert (matmul_w4a8.launches, matmul_w8a8.launches) == counts
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_speculative_decode_has_no_host_sync(sampled):
+    """``decode``'s rounds, on device inputs, run with any host sync an error
+    (``torch.cuda.set_sync_debug_mode``): the blob stays on the device."""
+    _require_cuda()
+    model, tree = _serving_tree(a8=False)
+    _, other = _serving_tree(a8=False, seed=1)
+    target, draft = (tree_map(lambda t: t.to("cuda"), t) for t in (tree, other))
+    spec = _spec(target, draft, model)
+    ids = np.asarray(SPEC_PROMPTS, np.int32)
+    lengths = np.full((4,), ids.shape[1], np.int32)
+    t_cache, _, first = spec.target.prefill(spec.target.new_cache(), ids, lengths,
+                                            with_tokens=True)
+    d_cache, _ = spec.draft.prefill(spec.draft.new_cache(), ids, lengths)
+    budgets = torch.full((4,), 9, dtype=torch.int32, device="cuda")
+    temps = torch.full((4,), 0.8, device="cuda") if sampled else None
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, blob = spec.decode(t_cache, d_cache, first, 3, budgets=budgets, temps=temps,
+                                 generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    blob = blob.cpu()
+    assert blob.shape == (4, 3, spec.k + 3)
+    assert ((blob[:, :, spec.k] >= 1) & (blob[:, :, spec.k] <= spec.k)).all()

@@ -192,6 +192,63 @@ def test_top_p_mass_below_cutoff_keeps_jax_set(top_k, monkeypatch):
     assert np.isfinite(got).sum() == (top_k or row.shape[1])
 
 
+@pytest.mark.parametrize("top_p", [1.0, 0.9], ids=["top_k", "top_k_then_top_p"])
+def test_top_k_past_vocab_keeps_jax_set(top_p, monkeypatch):
+    """A top_k larger than the vocabulary (V = 5, top_k = 9): the port once
+    raised in ``torch.topk``. The reference indexes its sorted row at -top_k,
+    which clamps to the smallest logit, so top-k masks nothing; the port
+    keeps the JAX sampler's kept set exactly, with and without top-p."""
+    from onnx_quantize_tpu.engine import sampling as jax_sampling
+    from onnx_quantize_tpu_torch.engine.sampling import _masked_logits
+
+    row = np.random.default_rng(2).normal(0, 1, (2, 5)).astype(np.float32)
+    params = SamplingParams(1.0, 9, top_p)
+    token = sample(torch.from_numpy(row), torch.Generator().manual_seed(0), params)
+    assert token.shape == (2,) and ((0 <= token) & (token < 5)).all()
+    kept = {}
+
+    def capture(key, logits, axis=-1):
+        kept["jax"] = np.asarray(logits)
+        return jax.numpy.zeros(logits.shape[:-1], jax.numpy.int32)
+
+    monkeypatch.setattr(jax_sampling.jax.random, "categorical", capture)
+    jax_sampling.sample(jax.numpy.asarray(row), jax.random.key(0),
+                        jax_sampling.SamplingParams(1.0, 9, top_p))
+    got = _masked_logits(torch.from_numpy(row), params).numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(kept["jax"]))
+    np.testing.assert_array_equal(got[np.isfinite(got)], kept["jax"][np.isfinite(got)])
+    if top_p == 1.0:
+        assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("top_p", [1.0, 0.9], ids=["top_k", "top_k_then_top_p"])
+def test_top_k_past_vocab_generates(setup, served, top_p):
+    """The same setting (top_k past V = 512) through ``generate``,
+    ``decode_multi`` and the per-step scheduler (chunk 1): each returns
+    tokens in range."""
+    from onnx_quantize_tpu_torch.engine import ContinuousBatchingScheduler
+
+    params = SamplingParams(temperature=1.0, top_k=TINY["vocab_size"] + 100, top_p=top_p)
+    teng = served["teng"]
+    out = teng.generate([[5, 9, 200, 7], [30, 31]], max_new_tokens=4, sampling=params,
+                        generator=torch.Generator().manual_seed(0))
+    assert [len(o) for o in out] == [4, 4]
+    ids = setup[4]
+    cache, _ = teng.prefill(teng.new_cache(), ids, LENGTHS, slot_mask=ACTIVE)
+    _, steps = teng.decode_multi(cache, np.ones((B,), np.int32), 3, active=ACTIVE,
+                                 sampling=params, generator=torch.Generator().manual_seed(2))
+    out.extend(steps.numpy().tolist())
+    sched = ContinuousBatchingScheduler(teng, generator=torch.Generator().manual_seed(1),
+                                        chunk=1)
+    handles = [sched.submit([5, 9, 200, 7], max_new_tokens=3, sampling=params),
+               sched.submit([30, 31], max_new_tokens=5, sampling=params)]
+    sched.run()
+    for h, n in zip(handles, (3, 5)):
+        assert h.done and len(h.output) == n
+    for tokens in out + [h.output for h in handles]:
+        assert all(0 <= t < TINY["vocab_size"] for t in tokens)
+
+
 def test_decode_multi_eos_freezes_like_jax(setup, served):
     _, _, _, _, ids = setup
     jeng, teng = served["jeng"], served["teng"]

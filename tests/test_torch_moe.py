@@ -2,11 +2,11 @@
 the JAX package.
 
 Counterpart of ``tests/models/test_moe.py``, every case but
-``test_speculative_decoding_with_moe_target`` (speculative decoding waits
-for ROADMAP.md Queue A item 12), plus: routing ties, the three layouts and
-the ragged prefill against JAX's own, the layouts' refusals, the engine
-against JAX's ``InferenceEngine``, ``prepare_kernel_scales`` over stacked
-leaves, and the bridge of JAX's stacked and fused trees.
+``test_speculative_decoding_with_moe_target`` (which
+``tests/test_torch_speculative.py`` holds), plus: routing ties, the three
+layouts and the ragged prefill against JAX's own, the layouts' refusals, the
+engine against JAX's ``InferenceEngine``, ``prepare_kernel_scales`` over
+stacked leaves, and the bridge of JAX's stacked and fused trees.
 
 The same numpy inputs and JAX's own params (bridged with
 ``from_jax_params``) go through both packages on the CPU. Tolerances: float32

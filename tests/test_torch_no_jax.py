@@ -40,7 +40,8 @@ def test_port_sources_found():
             "matmul_q8.py", "mlp_w4.py", "chip_smoke.py"} <= names
     # The calibration and pre-pass subpackages, QuaRot, the Llama and
     # structured models, packing, checkpoints, the interop, the serving
-    # scheduler and the MoE family are scanned too.
+    # scheduler, the MoE family, the package logger and speculative decoding
+    # are scanned too.
     scanned = {str(p.relative_to(REPO / "onnx_quantize_tpu_torch")) for p in PORT_FILES
                if p.is_relative_to(REPO / "onnx_quantize_tpu_torch")}
     assert {"calibration/__init__.py", "calibration/base.py", "calibration/calibrate.py",
@@ -49,7 +50,8 @@ def test_port_sources_found():
             "prepasses/__init__.py", "prepasses/awq.py", "prepasses/smooth_quant.py",
             "prepasses/rotate.py", "models/llama.py", "models/structured.py", "core/pack.py",
             "checkpoint.py", "interop.py", "engine/scheduler.py", "engine/sampling.py",
-            "models/moe.py"} <= scanned
+            "models/moe.py", "_logging.py", "engine/speculative.py",
+            "engine/spec_scheduler.py"} <= scanned
 
 
 def test_importing_the_port_builds_no_kernel():
