@@ -137,7 +137,7 @@ Phases (any failed check exits non-zero; each prints its seconds):
    (``fused_attention=True``), the W4A8 arm, the Q8 arm, the quantized arm
    with the fused MLP and an unquantized bf16 arm, by
    the slope between two step counts timed with CUDA events; the arms take
-   turns, and each reports the median of 5 samples.
+   turns, and each reports the median of 3 samples.
 6. Window scoring: ``perplexity_from_tokens`` of the phase-4 model over a
    seeded 4096-token stream (windows of 2048, stride 512: 5 windows), which
    runs flash attention in every layer. Checks the launch counts per window,
@@ -146,7 +146,7 @@ Phases (any failed check exits non-zero; each prints its seconds):
    and W8A8 launch on the tensor-core route; for the A8 model also an equal
    ppl with only its two matmul kernels swapped; prints
    the bf16 model's ppl beside them.
-7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 576 tokens through
+7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 544 tokens through
    an engine with an int8 cache and ``fused_attention=True`` (flash decode in
    every layer of every one-token forward, past the 512-token window).
    Checks the launch counts and the NLL against ``fused_attention=False``;
@@ -196,6 +196,36 @@ Phases (any failed check exits non-zero; each prints its seconds):
    the delta rule against the ``ContinuousBatchingScheduler`` over the
    target alone; tok/s of both. Prints its seconds and peak memory.
 
+11. Model families and ways in. (a) Phase 4's float Gemma-3-270M (the
+   same seed) written as a two-shard BF16 Hugging Face checkpoint (HF's
+   names, (out, in) projections, the tied head left out), read back by
+   ``load_gemma3_hf(..., dtype=torch.bfloat16)`` with every leaf bit-equal,
+   quantized as phase 4 (W4 g128 body, int8 head, fused) into a tree equal
+   to phase 4's, served (B=32, prompt 128, 16 greedy steps) with phase 4's
+   stream; then ``python -m onnx_quantize_tpu_torch.tools.perplexity`` in a
+   subprocess over 4,096 seeded tokens (5 windows of 2048, stride 512):
+   ``--hf-weights`` (the float32 model: flash attention on the CUDA cores)
+   and ``--checkpoint`` on the W4 tree saved by ``save_checkpoint``, each
+   within 1e-4 of ``perplexity_from_tokens`` in process. (b) TransformerLM
+   at GPT-2 small's published widths (768 wide, 12 layers of 12 heads, 3072
+   inner, vocab 50,257, 1024 positions; projections at its initializer
+   range 0.02) over (8, 1024) ids: BASELINE config 2 (72 W8 a forward
+   behind dynamic uint8 inputs), config 3 (static uint8 in and out,
+   percentile 0.995) as QDQ (72 W8) and as QLINEAR (72 Q8 with QBias).
+   (c) BertClassifier at BERT-base's (768 wide, 12 layers, vocab 30,522,
+   max_seq 128, two classes) over 512 synthetic SST-2 sentences: the JAX
+   grid's uint8_channel (W8), uint4_g128_rtn (W4, the classifier at N=2),
+   wio_uint8_dynamic and wio_int8_static_sym (W8 behind the activation
+   QDQ), the latter also as QLINEAR (Q8), accuracy printed. Weight-only
+   arms within 1e-3 of the largest logit of the plain run, argmax equal on
+   99.9% (GPT-2) or 510 of 512 (BERT); Q8 arms equal to it. An arm with
+   activation QDQ on W8 turns a last-bit difference into code flips that
+   compound, so it is held site by site on the plain run's own inputs and,
+   as a whole, to a last-bit control (the plain run with W8's sums in
+   float64). Phase 3 also runs W4 and W8 at N=2 (512 rows) and W8 and Q8
+   (with an int32 bias, bit-equal) at GPT-2's sites (8192 rows), float32 x,
+   timed beside their bounds. Prints the phase's seconds and peak memory.
+
 Phase 8 counts the device operations (as the nodes of a CUDA graph
 captured from one call) of the activation quantizer, the zero pad of its
 codes and one whole A8 site (which must be their sum plus one W4A8 kernel),
@@ -214,6 +244,7 @@ import dataclasses
 import json
 import math
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2705,7 +2736,7 @@ def run_decode_scoring(model, qparams, card) -> dict:
     from onnx_quantize_tpu_torch.engine import InferenceEngine
 
     cfg = model.cfg
-    B, T, max_seq = 32, 576, 1024
+    B, T, max_seq = 32, 544, 1024
     ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (B, T))
     forwards = T - 1  # the one-token prefill and T - 2 decode steps
 
@@ -3357,6 +3388,647 @@ def run_speculative(draft_model, draft_tree, card: str) -> dict:
     return launches
 
 
+# -- phase 11: model families and ways in --------------------------------------------
+
+def family_kernel_checks(gen) -> None:
+    """Phase 3's cases at this phase's new shapes: W4 (g128) and W8 (uint8
+    per channel) at BERT-base's two-class classifier (K=768, N=2) over 512
+    [CLS] rows, and Q8 with an int32 bias and W8 (int8 per channel) at GPT-2
+    small's Gemm sites (768->768, 768->3072, 3072->768) over a forward's 8192
+    rows, all with float32 x (both models are float32), against their plain
+    versions, each timed beside its bound (and Q8 beside ``torch._int_mm`` on
+    its int32 core)."""
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_q8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [("bert_classifier", "w4", 768, 2, "uint4", 128, False, 512),
+             ("bert_classifier", "w8", 768, 2, "uint8", -1, False, 512),
+             *(("gpt2_" + site, "w8", K, N, "int8", -1, True, 8192)
+               for site, K, N in (("attn", 768, 768), ("fc_in", 768, 3072),
+                                  ("fc_out", 3072, 768)))]
+    for name, kernel, K, N, dtype, gs, sym, M in cases:
+        qt = random_qtensor(K, N, dtype, gs, sym, gen)
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+            wrapper, plain, ops, kw = kernel_operands(kernel, qt, x)
+            y, again, ref = wrapper(*ops, **kw), wrapper(*ops, **kw), plain(*ops, **kw)
+            torch.cuda.synchronize()
+            err, scale = (y - ref).abs().max().item(), ref.abs().max().item()
+            check(bool(torch.isfinite(y).all()), f"{name} {kernel} {xdt}: non-finite output")
+            check(err <= REL_TOL * scale, f"{name} {kernel} M={M} {xdt}: max abs err "
+                                          f"{err:.3e} > {REL_TOL} * {scale:.3e}")
+            check(torch.equal(again, y), f"{name} {kernel} {xdt}: two launches differ")
+            plan = kernel_plan(kernel, M, ops[0].shape[1], N, kw, xdt, sms)
+            line = (f"kernel {kernel} {name} M={M} K={K} N={N} x={str(xdt)[6:]}: "
+                    f"max_abs_err={err:.3e} plan={plan.route} {plan.bm}x{plan.bn} "
+                    f"splits={getattr(plan, 'splits', 1)} blocks={plan.blocks}")
+            if xdt == torch.float32:
+                ms = cuda_time_ms(lambda: wrapper(*ops, **kw), 20)
+                plain_ms = cuda_time_ms(lambda: plain(*ops, **kw), 20)
+                b_ms, b_by = bound(nbytes(*ops, y), 2 * M * K * N, "float32")
+                line += (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+                         f"({b_by})")
+            print(line, flush=True)
+    for site, K, N in (("attn", 768, 768), ("fc_in", 768, 3072), ("fc_out", 3072, 768)):
+        qt, bias = q8_site(K, N, "int8", True, "channel", gen, with_bias=True)
+        M = 8192
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        ops = matmul_q8.q8_operands(x, qt, bias)
+        y, again = matmul_q8.q8_matmul(*ops), matmul_q8.q8_matmul(*ops)
+        ref = matmul_q8.q8_matmul_plain(*ops)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), f"q8 gpt2_{site} with bias: non-finite output")
+        check(torch.equal(y, ref) and torch.equal(again, y),
+              f"q8 gpt2_{site} with bias: not bit-equal to its plain version twice")
+        plan = matmul_q8.q8_plan(M, K, N, sms)
+        ms = cuda_time_ms(lambda: matmul_q8.q8_matmul(*ops), 20)
+        plain_ms = cuda_time_ms(lambda: matmul_q8.q8_matmul_plain(*ops), 20)
+        c = ops[3]
+        x_q = (torch.clamp(torch.round(x / c.fparams[0]).to(torch.int32) + c.iparams[0], *c.iq)
+               - c.x_shift).to(torch.int8)
+        lib_ms = cuda_time_ms(lambda: torch._int_mm(x_q, qt.data), 20)
+        b_ms, b_by = bound(nbytes(x, qt.data, ops[2], c.wsum, c.wzp, c.req, y), 2 * M * K * N,
+                           "int8")
+        print(f"kernel q8 gpt2_{site} with int32 bias M={M} K={K} N={N} x=float32: "
+              f"max_abs_err=0 (bit-equal twice) plan={plan.route} {plan.bm}x{plan.bn} "
+              f"splits={plan.splits} blocks={plan.blocks} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+              flush=True)
+
+
+def write_hf_gemma3(tree: dict, cfg, directory: Path, shards: int = 2) -> int:
+    """A Gemma-3 param tree as a Hugging Face ``Gemma3ForCausalLM`` checkpoint:
+    BF16 safetensors shards under HF's names, projections in HF's (out, in)
+    layout, the tied lm_head left out. Returns the bytes written."""
+    tensors = {"model.embed_tokens.weight": tree["embed"]["w"],
+               "model.norm.weight": tree["final_norm"]["w"]}
+    norms = {"input_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
+             "pre_ffn_norm": "pre_feedforward_layernorm",
+             "post_ffn_norm": "post_feedforward_layernorm"}
+    for i in range(cfg.num_layers):
+        layer, p = tree[f"layers.{i}"], f"model.layers.{i}"
+        for sub, group in (("attn", "self_attn"), ("mlp", "mlp")):
+            for key, leaf in layer[sub].items():
+                w = leaf["w"]
+                tensors[f"{p}.{group}.{key}.weight"] = w.t() if w.ndim == 2 else w
+        for key, hf_name in norms.items():
+            tensors[f"{p}.{hf_name}.weight"] = layer[key]["w"]
+    names = list(tensors)
+    per = -(-len(names) // shards)
+    written = 0
+    for s in range(shards):
+        header, blobs, offset = {}, [], 0
+        for name in names[s * per:(s + 1) * per]:
+            t = tensors[name].to(torch.bfloat16).contiguous().cpu()
+            raw = t.view(torch.uint8).numpy().tobytes()
+            header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                            "data_offsets": [offset, offset + len(raw)]}
+            blobs.append(raw)
+            offset += len(raw)
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        path = directory / f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        with open(path, "wb") as f:
+            f.write(struct.pack("<Q", len(blob)) + blob + b"".join(blobs))
+        written += path.stat().st_size
+    return written
+
+
+def leaves_equal(a, b, path="") -> list[str]:
+    """Paths where two param trees differ (tensors, QTensor fields), bit for bit."""
+    from onnx_quantize_tpu_torch.nn.qtensor import QBias, QTensor
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [p for k in a for p in leaves_equal(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (QTensor, QBias)):
+        fields = ("data", "scale", "zero_point")
+        return [f"{path}.{f}" for f in fields
+                if not torch.equal(getattr(a, f), getattr(b, f))]
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    ok = (a.dtype == b.dtype and a.shape == b.shape
+          and torch.equal(a.view(bits.get(a.dtype, a.dtype)), b.view(bits.get(b.dtype, b.dtype))))
+    return [] if ok else [path]
+
+
+def cli_perplexity(args: list[str]) -> tuple[float, float]:
+    """``python -m onnx_quantize_tpu_torch.tools.perplexity ARGS`` run as a
+    user runs it, from the checkout; (the printed perplexity, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "onnx_quantize_tpu_torch.tools.perplexity",
+                          *args], cwd=REPO, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"perplexity command line {args} exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    match = re.search(r"^perplexity: (\S+)$", out.stdout, re.M)
+    check(match is not None, f"perplexity command line printed no result: {out.stdout[-500:]}")
+    return float(match.group(1)), secs
+
+
+def counted_run(fn):
+    """(fn's result, the launches it made, seconds), counters reset first."""
+    reset_counts()
+    out, secs = timed(fn)
+    return out, {k: v for k, v in kernel_counts().items() if v}, secs
+
+
+def run_hf_import_and_cli(model, qparams, card: str) -> dict:
+    """Phase 11 (a): phase 4's float Gemma-3-270M (the same seed) written as a
+    two-shard BF16 HF checkpoint, read back, quantized and served as phase 4;
+    then the perplexity command line on it and on the W4 tree's checkpoint."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.checkpoint import save_checkpoint
+    from onnx_quantize_tpu_torch.engine import InferenceEngine
+    from onnx_quantize_tpu_torch.models.gemma3 import GEMMA3_270M, Gemma3, fuse_gemma3_projections
+    from onnx_quantize_tpu_torch.models.import_hf import load_gemma3_hf
+    from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
+
+    cfg = model.cfg
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "hf").mkdir()
+        written, write_s = timed(lambda: write_hf_gemma3(params, cfg, tmp / "hf"))
+        loaded, load_s = timed(lambda: load_gemma3_hf(model, str(tmp / "hf"),
+                                                      dtype=torch.bfloat16, device="cuda"))
+        bad = leaves_equal(params, loaded)
+        check(not bad, f"HF round trip: leaves differ from the tree written: {bad[:5]}")
+        check(loaded["lm_head"]["w"].data_ptr() == loaded["embed"]["w"].data_ptr(),
+              "HF round trip: the lm_head is not tied to the embedding")
+        print(f"HF import (Gemma-3-270M, 2 BF16 shards, {written / 2**20:.1f} MiB) on {card}: "
+              f"write {write_s:.2f} s, load_gemma3_hf to the card {load_s:.2f} s "
+              f"({written / load_s / 2**30:.2f} GiB/s); every leaf bit-equal to the tree "
+              "written", flush=True)
+        del params
+        body = oqt.QConfig(weights=oqt.QWeightArgs(dtype="uint4", group_size=128),
+                           ignore=["lm_head"])
+        head = oqt.QConfig(weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+                           ignore=[r"^layers\."])
+        tree = fuse_gemma3_projections(oqt.quantize(model, oqt.quantize(
+            model, loaded, body)[0], head)[0])
+        del loaded
+        bad = leaves_equal(tree, qparams)
+        check(not bad, f"the imported checkpoint's W4 tree differs from phase 4's: {bad[:5]}")
+
+        B, T, steps = 32, 128, 16
+        ids = np.random.default_rng(SEED).integers(1, cfg.vocab_size, size=(B, T)).astype(
+            np.int32)
+        lengths = np.full((B,), T, np.int32)
+
+        def serve(t):
+            engine = InferenceEngine(model, t, max_batch=B, max_seq=512, kv_quant=True,
+                                     dtype=torch.bfloat16)
+            cache, logits = engine.prefill(engine.new_cache(), ids, lengths)
+            return engine.decode_multi(cache, torch.argmax(logits, dim=-1), steps=steps)[1]
+
+        stream, counts, _ = counted_run(lambda: serve(tree))
+        want = {"w4": 4 * cfg.num_layers * (1 + steps), "w8": 1 + steps}
+        check(counts == want, f"the imported W4 tree served with launches {counts}, expected "
+                              f"{want}")
+        add(counts)
+        want_stream, counts, _ = counted_run(lambda: serve(qparams))
+        check(counts == want, f"phase 4's W4 tree served with launches {counts}, expected "
+                              f"{want}")
+        add(counts)
+        check(torch.equal(stream, want_stream),
+              "the imported W4 tree's greedy stream differs from phase 4's")
+        print(f"HF import served (W4 g128 body, int8 head, fused; B={B}, prompt {T}, {steps} "
+              f"greedy steps) on {card}: stream equal to phase 4's tree; launches {counts}",
+              flush=True)
+        del tree
+
+        n_tokens, max_length, stride = 4096, 2048, 512
+        windows = 1 + (n_tokens - max_length) // stride
+        tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, n_tokens)
+        np.save(tmp / "tokens.npy", tokens)
+        # --hf-weights: the float32 Gemma-3-270M (JAX's default dtype).
+        ppl_cli, cli_s = cli_perplexity(["--hf-weights", str(tmp / "hf"), "--tokens",
+                                         str(tmp / "tokens.npy")])
+        model32 = Gemma3(GEMMA3_270M)
+        params32, load32_s = timed(lambda: load_gemma3_hf(model32, str(tmp / "hf"),
+                                                          device="cuda"))
+        ppl, counts, secs = counted_run(lambda: perplexity_from_tokens(
+            model32, params32, tokens, max_length, stride))
+        routes = dict(kernel_modules()["flash_attention"].route_launches)
+        check(counts == {"flash_attention": cfg.num_layers * windows} and routes["mma"] == 0,
+              f"float32 window scoring launched {counts} on the routes {routes}, expected "
+              "flash attention in every layer on the CUDA cores")
+        add(counts)
+        check(abs(ppl_cli - ppl) <= 1e-4 * ppl, f"--hf-weights perplexity {ppl_cli} differs "
+                                                f"from the in-process {ppl}")
+        print(f"perplexity --hf-weights (float32 Gemma-3-270M, {n_tokens} seeded tokens, "
+              f"{windows} windows of {max_length} at stride {stride}) on {card}: command line "
+              f"{ppl_cli:.4f} ({cli_s:.1f} s with the interpreter's start and the load), in "
+              f"process {ppl:.4f} (float32 load {load32_s:.2f} s, {1e3 * secs / windows:.1f} "
+              f"ms a window); launches {counts}, flash attention routes {routes}", flush=True)
+        del params32, model32
+        # --checkpoint: phase 4's W4 tree through save_checkpoint.
+        save_checkpoint(str(tmp / "ckpt"), model, qparams)
+        ppl_cli, cli_s = cli_perplexity(["--checkpoint", str(tmp / "ckpt"), "--tokens",
+                                         str(tmp / "tokens.npy")])
+        ppl, counts, secs = counted_run(lambda: perplexity_from_tokens(
+            model, qparams, tokens, max_length, stride))
+        routes = dict(kernel_modules()["flash_attention"].route_launches)
+        want = {"w4": 4 * cfg.num_layers * windows, "w8": windows,
+                "flash_attention": cfg.num_layers * windows}
+        check(counts == want and routes["simt"] == 0,
+              f"W4 window scoring launched {counts} on the routes {routes}, expected {want} "
+              "with flash attention on the tensor cores")
+        add(counts)
+        check(abs(ppl_cli - ppl) <= 1e-4 * ppl, f"--checkpoint perplexity {ppl_cli} differs "
+                                                f"from the in-process {ppl}")
+        print(f"perplexity --checkpoint (phase 4's bf16 W4 tree) on {card}: command line "
+              f"{ppl_cli:.4f} ({cli_s:.1f} s), in process {ppl:.4f} "
+              f"({1e3 * secs / windows:.1f} ms a window); launches {counts}, flash attention "
+              f"routes {routes}", flush=True)
+    return launches
+
+
+def w4_site_routes(model, tree, x_dtype, rows) -> dict:
+    """Route -> the tree's W4 sites that take it, at ``rows(site name)`` rows
+    of ``x_dtype`` (W4 counts no routes itself; its plan names the route)."""
+    from onnx_quantize_tpu_torch.nn.qtensor import QTensor
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w4
+    from onnx_quantize_tpu_torch.utils import tree_get
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routes: dict = {}
+    for site in model.linear_sites():
+        w = tree_get(tree, site.param_path)["w"]
+        if isinstance(w, QTensor) and w.meta.packed:
+            plan = matmul_w4.w4_plan(rows(site.name), 2 * w.data.shape[0], w.meta.shape[1],
+                                     w.meta.pack_group, x_dtype, sms)
+            routes.setdefault(plan.route, []).append(site.name)
+    return {route: (len(names) if len(names) > 2 else names) for route, names in routes.items()}
+
+
+@contextlib.contextmanager
+def w8_plain_float64():
+    """W8's plain version with its dots and sums in float64, rounded to
+    float32 once at the end: another summation order than the plain
+    version's, the last-bit control of the activation-QDQ arms (reference
+    runs only)."""
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w8
+
+    def plain64(x2d, data, scale_rows, zp_rows, *, bk):
+        M, K = x2d.shape
+        n_k, N = K // bk, data.shape[1]
+        xt = x2d.double().reshape(M, n_k, bk).transpose(0, 1)
+        dots = torch.bmm(xt, data.double().reshape(n_k, bk, N))
+        if zp_rows is not None:
+            dots = dots - xt.sum(dim=-1, keepdim=True) * zp_rows.double().reshape(n_k, 1, N)
+        return (dots * scale_rows.double().reshape(n_k, 1, N)).sum(dim=0).float()
+
+    saved = matmul_w8.w8_matmul
+    matmul_w8.w8_matmul = plain64
+    try:
+        yield
+    finally:
+        matmul_w8.w8_matmul = saved
+
+
+def check_sites_on_plain_inputs(label: str, model, tree, chunks: list) -> tuple[int, str]:
+    """Every W8 site of ``tree`` on the plain run's own site inputs, one plain
+    forward for each input tuple of ``chunks``. Before the output QDQ, every
+    element of the kernel's product is within float32's rounding bound for
+    a dot of K products in any order, (K + 2) u (|x| @ |w|) (u = 2^-24), of
+    the product summed in float64; after it, every element is within
+    ``REL_TOL`` of the largest output of the plain version's, or one output
+    step off where the two float32 products straddle a rounding boundary.
+    The share of such elements depends on the summation order, so it is
+    reported beside the same share of the float64 product. Returns (sites,
+    that report)."""
+    from onnx_quantize_tpu_torch.nn.module import Context
+    from onnx_quantize_tpu_torch.nn.qtensor import QTensor
+    from onnx_quantize_tpu_torch.ops.kernels import matmul_w8
+    from onnx_quantize_tpu_torch.ops.reference import (
+        dequantize_weight,
+        qdq_epilogue,
+        qdq_prologue,
+    )
+    from onnx_quantize_tpu_torch.utils import tree_get
+
+    sites = [(site, tree_get(tree, site.param_path)) for site in model.linear_sites()]
+    sites = [(site, node) for site, node in sites if isinstance(node["w"], QTensor)]
+    # site name -> [elements off a step (kernel), off (float64), elements,
+    #               the largest error over its bound, sum |kernel - float64|,
+    #               sum |plain - float64|]
+    tally = {site.name: [0, 0, 0, 0.0, 0.0, 0.0] for site, _ in sites}
+    for inputs in chunks:
+        ctx = Context(taps={}, tap_inputs=True)
+        with torch.inference_mode(), plain_kernels():
+            model(tree, *inputs, ctx=ctx)
+        for site, node in sites:
+            w, b = node["w"], node.get("b")
+            with torch.inference_mode():
+                x = qdq_prologue(ctx.taps[site.name]["input"], w)
+                y = matmul_w8.w8_dequant_matmul(x, w)
+                with plain_kernels():
+                    y_plain = matmul_w8.w8_dequant_matmul(x, w)
+                    with w8_plain_float64():
+                        y_exact = matmul_w8.w8_dequant_matmul(x, w)
+                bound = (x.shape[-1] + 2) * 2.0 ** -24 * (x.abs() @ dequantize_weight(w).abs())
+                out, ref, out_exact = (qdq_epilogue(t, w, b) for t in (y, y_plain, y_exact))
+            over = ((y - y_exact).abs() / bound.clamp(min=torch.finfo(torch.float32).tiny)
+                    ).max().item()
+            check(over <= 1.0, f"{label} site {site.name}: the kernel's product beyond float32's "
+                               f"rounding bound of the float64 one ({over:.2f} of it)")
+            peak = ref.abs().max().item()
+            # One output step: the static scale, or a dynamic one from the range.
+            out_spec, step = w.meta.output_quant, 0.0
+            if out_spec.mode == "static":
+                step = float(w.output_scale)
+            elif out_spec.mode == "dynamic":
+                step = (ref.max() - torch.clamp(ref.min(), max=0.0)).item() / 255
+            err = (out - ref).abs()
+            check(err.max().item() <= REL_TOL * peak + 1.01 * step,
+                  f"{label} site {site.name}: kernel vs plain on the plain run's inputs: max "
+                  f"{err.max().item():.3e} beyond one output step ({step:.3e}; peak {peak:.3e})")
+            counts = tally[site.name]
+            counts[0] += int((err > REL_TOL * peak).sum())
+            counts[1] += int(((out_exact - ref).abs() > REL_TOL * peak).sum())
+            counts[2] += err.numel()
+            counts[3] = max(counts[3], over)
+            counts[4] += (y - y_exact).abs().sum().item()
+            counts[5] += (y_plain - y_exact).abs().sum().item()
+        del ctx
+    off, off_exact, n, _, e_kernel, e_plain = (sum(c[k] for c in tally.values())
+                                               for k in range(6))
+    worst = max(tally, key=lambda k: tally[k][0] / tally[k][2])
+    w_off, w_exact, w_n, _, w_kernel, w_plain = tally[worst]
+    return len(sites), (f"the largest error {max(c[3] for c in tally.values()):.4f} of its "
+                        f"bound; mean |product - float64| kernel {e_kernel / n:.3e}, plain "
+                        f"{e_plain / n:.3e}; {off / n:.2e} of the elements one output step off "
+                        f"plain at a tie, the float64 product {off_exact / n:.2e}; the most on "
+                        f"{worst}: {w_off / w_n:.2e}, the float64 product {w_exact / w_n:.2e}, "
+                        f"mean |product - float64| kernel {w_kernel / w_n:.3e}, plain "
+                        f"{w_plain / w_n:.3e}")
+
+
+def compare_family_arm(label: str, model, tree, inputs: tuple, sites: dict, exact: bool,
+                       card: str, min_agree: float, act_qdq: bool = False,
+                       site_chunks: list | None = None,
+                       two_class: bool = False) -> tuple[dict, torch.Tensor]:
+    """``model(tree, *inputs)`` through the kernels (twice: the second timed)
+    against the same with every kernel plain, launching exactly ``sites`` a
+    forward. Weight-only and Q8 arms: equal when ``exact``, else within
+    ``FAMILY_LOGIT_TOL`` of the largest |logit|, the decisions equal on at
+    least ``min_agree`` of the rows. The decision is the argmax, or for a
+    ``two_class`` classifier the margin against the plain run's median
+    margin, so that half the rows sit on each side of it and a flip can
+    show. An arm with activation QDQ on W8 (``act_qdq``) turns a last-bit
+    difference into 8-bit code flips that compound through the layers, so
+    it is held site by site on the plain run's own inputs (every row of
+    ``inputs``, a forward for each of ``site_chunks``) and, as a whole, to a
+    last-bit control (the plain run with W8's sums in float64): mean
+    |difference| at most twice the control's, decisions equal at most 0.01
+    (or three standard deviations of the shares' difference) less often
+    than the control's. Returns (the launches of both kernel forwards, as
+    counted, and the logits)."""
+    with torch.inference_mode():
+        logits, counts, _ = counted_run(lambda: model(tree, *inputs))
+        _, again, secs = counted_run(lambda: model(tree, *inputs))
+        routes = {k: dict(kernel_modules()[k].route_launches) for k in ("w8",) if k in counts}
+        check(counts == sites and again == sites,
+              f"{label}: the forwards launched {counts} and {again}, expected {sites}")
+        with plain_kernels():
+            plain, plain_counts, plain_secs = counted_run(lambda: model(tree, *inputs))
+        check(not plain_counts, f"{label}: the plain run launched {plain_counts}")
+    launches = {k: counts[k] + again[k] for k in counts}
+    check(bool(torch.isfinite(logits).all()), f"{label}: logits not finite")
+    diff = (logits - plain).abs()
+    peak = plain.abs().max().item()
+    if two_class:
+        margin = plain[:, 1] - plain[:, 0]
+        threshold = margin.median()
+
+        def decide(t):
+            return (t[:, 1] - t[:, 0]) > threshold
+
+        near = ((margin - threshold).abs() <= diff.max()).float().mean().item()
+        spread = (f"; decision at the plain run's median margin {threshold.item():.4e} (margin "
+                  f"std {margin.std().item():.4e}, {near:.4f} of the rows within the largest "
+                  "difference of it)")
+    else:
+        def decide(t):
+            return t.argmax(-1)
+        spread = ""
+    agree = (decide(logits) == decide(plain)).float().mean().item()
+    line = (f"{label} on {card}: {1e3 * secs:.1f} ms a forward (plain versions "
+            f"{1e3 * plain_secs:.1f}); launches a forward {counts}, routes {routes}; logits vs "
+            f"plain max_abs_diff={diff.max().item():.4e} mean_abs_diff={diff.mean().item():.4e} "
+            f"max|logit|={peak:.4e}{spread}; decisions equal {agree:.5f}")
+    if not act_qdq:
+        tol = 0.0 if exact else FAMILY_LOGIT_TOL * peak
+        print(f"{line}; tol {tol:.4e}", flush=True)
+        check(diff.max().item() <= tol, f"{label}: logits through the kernels disagree with "
+                                        "plain")
+        check(agree >= min_agree, f"{label}: decisions equal on {agree:.5f} of the rows")
+        return launches, logits
+    n_sites, ties = check_sites_on_plain_inputs(label, model, tree, site_chunks)
+    rows = sum(chunk[0].shape[0] for chunk in site_chunks)
+    with torch.inference_mode(), plain_kernels(), w8_plain_float64():
+        control = model(tree, *inputs)
+    c_diff = (control - plain).abs()
+    c_agree = (decide(control) == decide(plain)).float().mean().item()
+    print(f"{line}; every one of {n_sites} sites within float32's rounding bound before the "
+          f"output QDQ and within {REL_TOL} of plain or one output step after it, on the plain "
+          f"run's inputs, all {rows} rows in {len(site_chunks)} forwards ({ties}); "
+          f"last-bit control (W8 plain summed in float64) vs plain: max_abs_diff="
+          f"{c_diff.max().item():.4e} mean_abs_diff={c_diff.mean().item():.4e} decisions "
+          f"equal {c_agree:.5f}", flush=True)
+    check(diff.mean().item() <= 2 * c_diff.mean().item() + FAMILY_LOGIT_TOL * 1e-3 * peak,
+          f"{label}: kernel vs plain mean difference beyond twice the last-bit control's")
+    # Flips are counted on few rows (BERT's 512): three standard deviations of
+    # the difference of the two shares, at least 0.01.
+    slack = max(0.01, 3 * math.sqrt((2 - agree - c_agree) / decide(plain).numel()))
+    check(agree >= c_agree - slack, f"{label}: decisions equal on {agree:.5f}, below the "
+                                    f"last-bit control's {c_agree:.5f} by more than {slack:.4f}")
+    return launches, logits
+
+
+# W4 and W8 against their plain versions differ by float32 summation order.
+# Weight-only, the logits move by rounding only: 1e-3 of the largest |logit|
+# bounds that. Q8 is bit-equal site by site and the float ops between sites
+# are the same in both runs, so its arms must be equal.
+FAMILY_LOGIT_TOL = 1e-3
+# GPT-2's and BERT's initializer_range (their config.json): the projections
+# are drawn at this std (the port's Linear init, 0.1, scaled); at 0.1 the
+# quantized GPT-2 moves its logits by 21-47% of their mean from the float
+# model's.
+FAMILY_INIT_STD = 0.02
+
+
+def family_params(model) -> dict:
+    """The model's seeded init (seed 0) with every Linear weight scaled from
+    the Linear init's 0.1 to ``FAMILY_INIT_STD`` (the embeddings' 0.02 is
+    already the published initializer_range)."""
+    from onnx_quantize_tpu_torch.utils import tree_get
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    for site in model.linear_sites():
+        node = tree_get(params, site.param_path)
+        node["w"] = node["w"] * (FAMILY_INIT_STD / 0.1)
+    return params
+
+
+# GPT-2 small (openai-community/gpt2 config.json: n_embd 768, n_layer 12,
+# n_head 12, n_inner null = 4 x 768, n_positions 1024, vocab_size 50257,
+# layer_norm_epsilon 1e-5, gelu_new = the tanh GELU).
+GPT2_SMALL = dict(vocab_size=50257, hidden_size=768, intermediate_size=3072, num_layers=12,
+                  num_heads=12, max_seq=1024, layer_norm_eps=1e-5)
+# BERT-base (google-bert/bert-base-uncased config.json: hidden 768, 12
+# layers, 12 heads, intermediate 3072, vocab 30522, layer_norm_eps 1e-12) at
+# GLUE's usual max_seq_length 128, two classes.
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, intermediate_size=3072, num_layers=12,
+                 num_heads=12, max_seq=128, num_classes=2, layer_norm_eps=1e-12)
+
+
+def run_gpt2(card: str) -> dict:
+    """Phase 11 (b): TransformerLM at GPT-2 small's widths, BASELINE config 2
+    (W8 behind dynamic uint8 inputs) and config 3 (static uint8 in and out,
+    percentile 0.995), the latter as the JAX test's QDQ tree (W8 behind the
+    static QDQ) and as QLINEAR (Q8 with QBias), over (8, 1024) ids."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from onnx_quantize_tpu_torch.utils import tree_map
+
+    cfg = TransformerConfig(**GPT2_SMALL)
+    model = TransformerLM(cfg)
+    params = family_params(model)
+    leaves: list = []
+    tree_map(leaves.append, params)
+    n_params = sum(leaf.numel() for leaf in leaves)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (8, 1024)).astype(np.int32)
+    x = torch.from_numpy(ids).to("cuda")
+    static = oqt.QActivationArgs(dtype="uint8")
+    config3 = dict(weights=oqt.QWeightArgs(dtype="int8", group_size=-1),
+                   input_activations=static, output_activations=static,
+                   calibration_params=oqt.CalibrationParams(method="percentile",
+                                                            percentile=0.995, num_samples=8,
+                                                            batch_size=4),
+                   calibration_data=ids, ignore=["lm_head"])
+    # (label, kernel, Q8 (exact), activation QDQ on W8, QConfig)
+    arms = [("config 2 (W8, dynamic uint8 inputs)", "w8", False, True, oqt.QConfig(
+                weights=oqt.QWeightArgs(dtype="int8", group_size=-1),
+                input_activations=oqt.QActivationArgs(dtype="uint8", is_static=False),
+                ignore=["lm_head"])),
+            ("config 3 QDQ (W8, static uint8 in and out)", "w8", False, True,
+             oqt.QConfig(**config3)),
+            ("config 3 QLINEAR (Q8 with QBias)", "q8", True, False,
+             oqt.QConfig(format="qlinear", **config3))]
+    launches: dict = {}
+    with torch.inference_mode():
+        fp, _, fp_secs = counted_run(lambda: model(params, x))
+    print(f"GPT-2 small TransformerLM (seeded, {n_params / 1e6:.1f} M float32 parameters, "
+          f"(8, 1024) ids) on {card}: float forward {1e3 * fp_secs:.1f} ms", flush=True)
+    for label, kernel, exact, act_qdq, qconfig in arms:
+        (tree, plan), q_s = timed(lambda: oqt.quantize(model, params, qconfig))
+        check(len(plan) == 6 * cfg.num_layers, f"GPT-2 {label}: {len(plan)} sites quantized")
+        counts, logits = compare_family_arm(
+            f"GPT-2 small {label}, quantized in {q_s:.2f} s", model, tree, (x,),
+            {kernel: 6 * cfg.num_layers}, exact, card, 0.999, act_qdq,
+            [(x[i:i + 2],) for i in range(0, x.shape[0], 2)])
+        rel = ((logits - fp).abs().mean() / fp.abs().mean()).item()
+        print(f"GPT-2 small {label}: mean |logits - float| / mean |float| = {rel:.4f} (the "
+              "JAX test's bar is 0.1, not gated on random weights)", flush=True)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        del tree, logits
+    return launches
+
+
+def run_bert(card: str) -> dict:
+    """Phase 11 (c): BertClassifier at BERT-base's widths over 512 sentences
+    of synthetic SST-2, four configurations of the JAX grid (and the QLINEAR
+    form of its static symmetric one), each against the plain versions."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.models.bert import (
+        BertClassifier,
+        BertConfig,
+        accuracy,
+        synthetic_sst2,
+    )
+
+    cfg = BertConfig(**BERT_BASE)
+    model = BertClassifier(cfg)
+    params = family_params(model)
+    ids, mask, labels = synthetic_sst2(512, cfg, seed=99)
+    calib_ids, calib_mask, _ = synthetic_sst2(128, cfg, seed=41)
+    calib = {"input_ids": calib_ids, "attention_mask": calib_mask}
+    inputs = (torch.from_numpy(ids).to("cuda"), torch.from_numpy(mask).to("cuda"))
+
+    def act(w, a, sym, static, **extra):
+        return oqt.QConfig(weights=oqt.QWeightArgs(dtype=w, symmetric=sym, group_size=-1),
+                           input_activations=oqt.QActivationArgs(dtype=a, is_static=static),
+                           output_activations=oqt.QActivationArgs(dtype=a, is_static=static),
+                           calibration_data=calib, **extra)
+
+    sites = 6 * cfg.num_layers + 2
+    # (label, kernel, Q8 (exact), activation QDQ on W8, QConfig)
+    arms = [("uint8_channel", "w8", False, False, oqt.QConfig(
+                weights=oqt.QWeightArgs(dtype="uint8", symmetric=False, group_size=-1))),
+            ("uint4_g128_rtn", "w4", False, False, oqt.QConfig(
+                weights=oqt.QWeightArgs(dtype="uint4", strategy="group", group_size=128))),
+            ("wio_uint8_dynamic", "w8", False, True, act("uint8", "uint8", False, False)),
+            ("wio_int8_static_sym", "w8", False, True, act("int8", "int8", True, True)),
+            ("wio_int8_static_sym as QLINEAR (Q8 with QBias)", "q8", True, False,
+             act("int8", "int8", True, True, format="qlinear"))]
+    launches: dict = {}
+    acc = accuracy(model, params, ids, mask, labels)
+    print(f"BERT-base classifier (seeded, 2 classes, max_seq 128, 512 synthetic SST-2 "
+          f"sentences) on {card}: float accuracy {acc:.4f} (random weights: not gated)",
+          flush=True)
+    for label, kernel, exact, act_qdq, qconfig in arms:
+        (tree, plan), q_s = timed(lambda: oqt.quantize(model, params, qconfig))
+        check(len(plan) == sites, f"BERT {label}: {len(plan)} sites quantized")
+        routes = w4_site_routes(model, tree, torch.float32,
+                                lambda name: 512 if name in ("pooler", "classifier")
+                                else 512 * cfg.max_seq)
+        counts, _ = compare_family_arm(
+            f"BERT-base {label}, quantized in {q_s:.2f} s", model, tree, inputs,
+            {kernel: sites}, exact, card, 510 / 512, act_qdq,
+            [tuple(t[i:i + 64] for t in inputs) for i in range(0, len(ids), 64)],
+            two_class=True)
+        reset_counts()
+        acc = accuracy(model, tree, ids, mask, labels)
+        torch.cuda.synchronize()
+        for k, n in kernel_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        extra = f"; W4 sites by route {routes}" if routes else ""
+        print(f"BERT-base {label}: accuracy {acc:.4f} (not gated){extra}", flush=True)
+        del tree
+    return launches
+
+
+def run_families(model, qparams, card: str) -> dict:
+    """Phase 11: the HF import and the command line, TransformerLM and BERT.
+    Returns the launches of its main-path runs."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launches: dict = {}
+    for part in (lambda: run_hf_import_and_cli(model, qparams, card), lambda: run_gpt2(card),
+                 lambda: run_bert(card)):
+        t0 = time.perf_counter()
+        for k, n in part().items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"phase 11 part done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 11 model families and ways in on {card}: "
+          f"{time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3448,6 +4120,7 @@ def main() -> int:
                       f"unfused W4 pair {r['unfused_ms']:.4f}, bound {r['bound_ms']:.5f} "
                       f"({r['bound_by']}), plain {r['plain_ms']:.4f}"
                       for M, r in sorted(mlp["by_m"].items())), flush=True)
+    family_kernel_checks(gen)
     phase_done("3 kernels")
 
     # Phase 4: the main path: W4, A8, Q8 and MLP arms.
@@ -3521,7 +4194,7 @@ def main() -> int:
 
     # Phase 5: rates.
     # The loop is host-bound and the host is shared, so the arms take turns
-    # (the order rotates each round) and each reports the median of 5 samples.
+    # (the order rotates each round) and each reports the median of 3 samples.
     # The fused arm is the quantized engine with flash decode in every layer;
     # the MLP arm is the quantized engine with the fused MLP.
     arms = {"quantized": decode_arm(model, qparams, kv_quant=True),
@@ -3532,14 +4205,14 @@ def main() -> int:
             "bf16": decode_arm(model, fparams, kv_quant=False)}
     rates = {name: [] for name in arms}
     names = list(arms)
-    for r in range(5):
+    for r in range(3):
         for name in names[r % len(names):] + names[:r % len(names)]:
             rates[name].append(arms[name]())
     rate_q, rate_f, rate_a8, rate_q8, rate_mlp, rate_bf16 = (float(np.median(rates[n]))
                                                              for n in names)
     samples = {n: [round(v, 1) for v in r] for n, r in rates.items()}
     print(f"decode tok/s samples: {json.dumps(samples)}")
-    print(f"decode tok/s (B=32, prompt 128, slope 16->48 steps, CUDA events, median of 5) on "
+    print(f"decode tok/s (B=32, prompt 128, slope 16->48 steps, CUDA events, median of 3) on "
           f"{card}: quantized W4+int8 head+int8 KV {rate_q:.1f}, with flash decode "
           f"{rate_f:.1f}, W4A8+W8A8 head+int8 KV {rate_a8:.1f}, Q8+int8 head+int8 KV "
           f"{rate_q8:.1f}, quantized with fused MLP {rate_mlp:.1f}, bf16 {rate_bf16:.1f}, ratio "
@@ -3620,6 +4293,12 @@ def main() -> int:
     for key, n in run_speculative(model, qparams, card).items():
         launches[key] += n
     phase_done("10 speculative decoding")
+
+    # Phase 11: the HF import and the perplexity command line at Gemma-3-270M's
+    # width, TransformerLM at GPT-2 small's and BERT at BERT-base's.
+    for key, n in run_families(model, qparams, card).items():
+        launches[key] += n
+    phase_done("11 model families and ways in")
 
     # name in the kernels line, CUDA source, replaced TPU kernel.
     sources = {

@@ -6,15 +6,16 @@ pre-norm only, SiLU MLP, unscaled embeddings, plain-w RMSNorm, one rope theta
 with optional llama3 frequency scaling, no sliding window).
 :func:`llama_config` expresses them as ``Gemma3Config`` switches, so the
 quantizer, the kernels, the engine and fusion serve Llama models with no new
-execution code.
-
-``load_llama_hf`` (the HF safetensors import) is not ported yet: it waits
-with ``models/import_hf.py`` (ROADMAP.md, Queue A item 11).
+execution code. :func:`load_llama_hf` imports a local HF Llama or Qwen-2
+safetensors checkpoint through ``models/import_hf.py``'s Llama-shaped loader.
 """
 
 from __future__ import annotations
 
+import torch
+
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config
+from onnx_quantize_tpu_torch.models.import_hf import glu_site, load_llama_shaped_hf
 
 __all__ = ["llama_config", "Llama", "LLAMA32_1B", "LLAMA32_3B", "QWEN25_05B",
            "tiny_llama_config", "load_llama_hf"]
@@ -100,10 +101,14 @@ def tiny_llama_config(**kw) -> Gemma3Config:
     return llama_config(**base)
 
 
-def load_llama_hf(model, directory: str, dtype=None) -> dict:
-    """The HF Llama checkpoint import. Not ported: it needs the safetensors
-    reader of ``models/import_hf.py``."""
-    raise NotImplementedError(
-        "load_llama_hf is not ported to PyTorch yet; see ROADMAP.md, Queue A item 11 "
-        "(models/import_hf.py)."
-    )
+def load_llama_hf(model, directory: str, dtype: torch.dtype = torch.float32,
+                  device: torch.device | str = "cuda") -> dict:
+    """The framework param tree from a local HF Llama checkpoint directory (or
+    Qwen-2's, whose q/k/v biases land in the Gemm sites' ``b``), as ``dtype``
+    on ``device``. The lm_head is tied to the embedding unless the checkpoint
+    carries its own."""
+    def mlp_fn(prefix: str, proj) -> dict:
+        return glu_site(proj, f"{prefix}.mlp.gate_proj.weight", f"{prefix}.mlp.up_proj.weight",
+                        f"{prefix}.mlp.down_proj.weight")
+
+    return load_llama_shaped_hf(model, directory, mlp_fn, dtype, device)

@@ -16,8 +16,9 @@ and ``engine.prepare_kernel_scales``:
   N and every down_proj along K (``_fused_experts``), so a layer's experts
   are two matmuls. A layer it cannot take keeps its per-expert subtrees.
 
-The HF checkpoint loaders wait with ``models/import_hf.py`` (ROADMAP.md,
-Queue A item 11) and raise.
+:func:`load_qwen_moe_hf` and :func:`load_mixtral_hf` import local HF
+safetensors checkpoints (float32, through the Llama-shaped loader of
+``models/import_hf.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import logging
 import torch
 
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config
+from onnx_quantize_tpu_torch.models.import_hf import glu_site, load_llama_shaped_hf
 from onnx_quantize_tpu_torch.models.llama import llama_config
 from onnx_quantize_tpu_torch.nn.fuse import can_fuse, fuse_sites
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
@@ -251,17 +253,43 @@ def fuse_moe_experts(params: dict) -> dict:
     return params
 
 
-def load_qwen_moe_hf(model, directory: str) -> dict:
-    """The HF Qwen-MoE checkpoint import. Not ported: it needs the safetensors
-    reader of ``models/import_hf.py``."""
-    raise NotImplementedError(
-        "load_qwen_moe_hf is not ported to PyTorch yet; see ROADMAP.md, Queue A item 11 "
-        "(models/import_hf.py).")
+# ── HF checkpoint import ─────────────────────────────────────────────────────
 
 
-def load_mixtral_hf(model, directory: str) -> dict:
-    """The HF Mixtral checkpoint import. Not ported: it needs the safetensors
-    reader of ``models/import_hf.py``."""
-    raise NotImplementedError(
-        "load_mixtral_hf is not ported to PyTorch yet; see ROADMAP.md, Queue A item 11 "
-        "(models/import_hf.py).")
+def load_qwen_moe_hf(model, directory: str, device: torch.device | str = "cuda") -> dict:
+    """Param tree from a local HF Qwen-MoE checkpoint directory (Qwen1.5/2-MoE
+    names: the ``mlp.gate`` router, ``mlp.experts.{e}.*_proj``, the
+    ``mlp.shared_expert`` behind the sigmoid ``mlp.shared_expert_gate``)."""
+    cfg = model.cfg
+
+    def mlp_fn(prefix: str, proj) -> dict:
+        mlp = {"router": {"w": proj(f"{prefix}.mlp.gate.weight")}}
+        for e in range(cfg.num_experts):
+            ep = f"{prefix}.mlp.experts.{e}"
+            mlp[f"experts.{e}"] = glu_site(proj, f"{ep}.gate_proj.weight",
+                                           f"{ep}.up_proj.weight", f"{ep}.down_proj.weight")
+        if cfg.shared_expert_size:
+            sp = f"{prefix}.mlp.shared_expert"
+            mlp["shared"] = glu_site(proj, f"{sp}.gate_proj.weight", f"{sp}.up_proj.weight",
+                                     f"{sp}.down_proj.weight")
+            mlp["shared_gate"] = {"w": proj(f"{prefix}.mlp.shared_expert_gate.weight")}
+        return mlp
+
+    return load_llama_shaped_hf(model, directory, mlp_fn, torch.float32, device)
+
+
+def load_mixtral_hf(model, directory: str, device: torch.device | str = "cuda") -> dict:
+    """Param tree from a local HF Mixtral checkpoint directory (the
+    ``block_sparse_moe.gate`` router; experts ``w1`` = gate, ``w3`` = up,
+    ``w2`` = down)."""
+    cfg = model.cfg
+
+    def mlp_fn(prefix: str, proj) -> dict:
+        mlp = {"router": {"w": proj(f"{prefix}.block_sparse_moe.gate.weight")}}
+        for e in range(cfg.num_experts):
+            ep = f"{prefix}.block_sparse_moe.experts.{e}"
+            mlp[f"experts.{e}"] = glu_site(proj, f"{ep}.w1.weight", f"{ep}.w3.weight",
+                                           f"{ep}.w2.weight")
+        return mlp
+
+    return load_llama_shaped_hf(model, directory, mlp_fn, torch.float32, device)

@@ -13,17 +13,28 @@ host at the end, never the (max_length, vocab) logits.
 
 Token sources: a pre-tokenized ``.npy`` array, a text file with a tokenizer,
 or the wikitext-2 test split (the last two need ``transformers`` or
-``datasets``, imported only when used). The command-line entry point waits
-for the checkpoint loader and the Hugging Face importer (ROADMAP.md, Queue A
-items 10 and 11).
+``datasets``, imported only when used).
+
+Command line (on the CUDA device unless ``--cpu``)::
+
+    python -m onnx_quantize_tpu_torch.tools.perplexity --hf-weights DIR --tokens T.npy
+    python -m onnx_quantize_tpu_torch.tools.perplexity --checkpoint CKPT --tokens T.npy
+
+``--hf-weights`` scores the float32 Gemma-3-270M from a local HF safetensors
+directory; ``--checkpoint`` a framework checkpoint (``checkpoint.py``), such
+as a quantized tree. ``--text`` tokenizes a text file with the tokenizer of
+``--model-id`` (a local path: nothing is downloaded). It prints
+``perplexity: X.XXXX``.
 """
 
 from __future__ import annotations
 
+import argparse
+
 import numpy as np
 import torch
 
-__all__ = ["perplexity_eval", "perplexity_from_tokens", "load_wikitext_tokens"]
+__all__ = ["perplexity_eval", "perplexity_from_tokens", "load_wikitext_tokens", "main"]
 
 
 def load_wikitext_tokens(model_id: str | None = None, tokenizer=None) -> np.ndarray:
@@ -83,11 +94,52 @@ def perplexity_eval(model, params, model_id: str | None = None, tokens_path: str
     if tokens_path is not None:
         input_ids = np.load(tokens_path)
     elif text_path is not None:
-        from transformers import AutoTokenizer
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as exc:
+            raise ImportError("--text needs the transformers package for its tokenizer; "
+                              "pass a pre-tokenized --tokens .npy file instead") from exc
 
-        tokenizer = AutoTokenizer.from_pretrained(model_id)
+        tokenizer = AutoTokenizer.from_pretrained(model_id, local_files_only=True)
         with open(text_path) as f:
             input_ids = tokenizer(f.read(), return_tensors="np").input_ids[0]
     else:
         input_ids = load_wikitext_tokens(model_id)
     return perplexity_from_tokens(model, params, input_ids, max_length, stride, mesh=mesh)
+
+
+def main(argv=None) -> float:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--checkpoint", help="Path to a framework checkpoint (checkpoint.py).")
+    source.add_argument("--hf-weights",
+                        help="HF safetensors dir for google/gemma-3-270m: score the float32 "
+                             "model without a checkpoint.")
+    parser.add_argument("--model-id", default="google/gemma-3-270m",
+                        help="Local tokenizer path for --text.")
+    parser.add_argument("--tokens", default=None, help="Pre-tokenized .npy file.")
+    parser.add_argument("--text", default=None, help="Raw text file to tokenize.")
+    parser.add_argument("--max-length", type=int, default=2048)
+    parser.add_argument("--stride", type=int, default=512)
+    parser.add_argument("--cpu", action="store_true", help="Run on the CPU, not the CUDA device.")
+    args = parser.parse_args(argv)
+
+    device = "cpu" if args.cpu else "cuda"
+    if args.hf_weights:
+        from onnx_quantize_tpu_torch.models.gemma3 import GEMMA3_270M, Gemma3
+        from onnx_quantize_tpu_torch.models.import_hf import load_gemma3_hf
+
+        model = Gemma3(GEMMA3_270M)
+        params = load_gemma3_hf(model, args.hf_weights, device=device)
+    else:
+        from onnx_quantize_tpu_torch.checkpoint import load_checkpoint
+
+        model, params = load_checkpoint(args.checkpoint, device=device)
+    ppl = perplexity_eval(model, params, model_id=args.model_id, tokens_path=args.tokens,
+                          text_path=args.text, max_length=args.max_length, stride=args.stride)
+    print(f"perplexity: {ppl:.4f}")
+    return ppl
+
+
+if __name__ == "__main__":
+    main()

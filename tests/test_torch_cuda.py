@@ -82,6 +82,10 @@ CASES = [
                                    ("uint8", -1, False, 640, 65552, 400),
                                    ("int8", -1, True, 1024, 65552, 200),
                                    ("uint8", -1, False, 130, 128, 4)]),
+    # BERT-base's two-class classifier (N = 2) at 512 [CLS] rows: W4 g128
+    # and W8 per channel (the JAX predicates' N % 128 sends these to jnp).
+    pytest.param(("uint4", 128, False, 768, 2, (512,)), id="w4-bert-classifier-768x2-M512"),
+    pytest.param(("uint8", -1, False, 768, 2, (512,)), id="w8-bert-classifier-768x2-M512"),
 ]
 
 
@@ -572,6 +576,10 @@ Q8_CASES = [
     pytest.param(("int8", True, "channel", 640, 1024, (32, 128), False),
                  id="q8-route-q-640x1024-M4096"),
     pytest.param(("uint8", False, "channel", 640, 208, (5,), True), id="q8-route-640x208-M5"),
+    # GPT-2 small's QLINEAR Gemm sites with their int32 biases: q/k/v/o,
+    # fc_in and fc_out.
+    *(pytest.param(("int8", True, "channel", K, N, (2, 64), True), id=f"q8-gpt2-bias-{K}x{N}")
+      for K, N in [(768, 768), (768, 3072), (3072, 768)]),
 ]
 
 
@@ -1255,3 +1263,31 @@ def test_speculative_decode_has_no_host_sync(sampled):
     blob = blob.cpu()
     assert blob.shape == (4, 3, spec.k + 3)
     assert ((blob[:, :, spec.k] >= 1) & (blob[:, :, spec.k] <= spec.k)).all()
+
+
+def test_hf_bf16_checkpoint_loads_on_card_bit_equal(tmp_path):
+    """A BF16 HF Gemma-3 directory (two shards, written by ``chip_smoke.py``'s
+    writer) read straight to the card by ``load_gemma3_hf(...,
+    dtype=torch.bfloat16)``: every leaf on the card and equal, bit for bit,
+    to the CPU load; the tied head a view of the embedding; the model runs."""
+    _require_cuda()
+    from chip_smoke import write_hf_gemma3
+    from onnx_quantize_tpu_torch.models.import_hf import load_gemma3_hf
+
+    cfg = Gemma3Config.tiny()
+    model = Gemma3(cfg)
+    tree = model.init(torch.Generator().manual_seed(0))
+    (tmp_path / "hf").mkdir()
+    write_hf_gemma3(tree, cfg, tmp_path / "hf")
+    card = load_gemma3_hf(model, str(tmp_path / "hf"), dtype=torch.bfloat16, device="cuda")
+    host = load_gemma3_hf(model, str(tmp_path / "hf"), dtype=torch.bfloat16, device="cpu")
+    leaves_card, leaves_host = [], []
+    tree_map(leaves_card.append, card)
+    tree_map(leaves_host.append, host)
+    assert len(leaves_card) == len(leaves_host)
+    for a, b in zip(leaves_card, leaves_host):
+        assert a.is_cuda and a.dtype == torch.bfloat16
+        assert torch.equal(a.cpu(), b)
+    assert card["lm_head"]["w"].data_ptr() == card["embed"]["w"].data_ptr()
+    ids = torch.tensor([[1, 2, 3, 4]], device="cuda")
+    assert torch.isfinite(model(card, ids).float()).all()

@@ -123,9 +123,12 @@ def test_llama_rmsnorm_matches_jax():
                                np.asarray(ref), atol=1e-6, rtol=0)
 
 
-def test_load_llama_hf_waits_for_import_hf():
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        llama.load_llama_hf(llama.Llama(llama.tiny_llama_config()), "/nonexistent")
+def test_load_llama_hf_waits_for_import_hf(tmp_path):
+    """The loader reads through ``models/import_hf.py`` (ported): a directory
+    with no shard raises the JAX loader's error (``tests/test_torch_llama_hf.py``
+    holds it to HF's logits)."""
+    with pytest.raises(FileNotFoundError, match="No .safetensors"):
+        llama.load_llama_hf(llama.Llama(llama.tiny_llama_config()), str(tmp_path), device="cpu")
 
 
 def test_quantized_llama_serves_through_the_engine():

@@ -236,9 +236,12 @@ def test_published_configs_equal_jax(name):
 
 
 @pytest.mark.parametrize("loader", ["load_qwen_moe_hf", "load_mixtral_hf"])
-def test_hf_loaders_wait_for_import_hf(loader):
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        getattr(moe, loader)(Gemma3(tiny_moe_config()), "/nonexistent")
+def test_hf_loaders_wait_for_import_hf(loader, tmp_path):
+    """The loaders read through ``models/import_hf.py`` (ported): a directory
+    with no shard raises the JAX loader's error (``tests/test_torch_moe_hf.py``
+    holds them to HF's logits)."""
+    with pytest.raises(FileNotFoundError, match="No .safetensors"):
+        getattr(moe, loader)(Gemma3(tiny_moe_config()), str(tmp_path), device="cpu")
 
 
 # -- quantization and the engine layouts ----------------------------------------------

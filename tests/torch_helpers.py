@@ -4,6 +4,8 @@ that run the same params through both packages (bridge the JAX helper's
 
 from __future__ import annotations
 
+import numpy as np
+
 from onnx_quantize_tpu_torch import nn as tnn
 from onnx_quantize_tpu_torch.nn.module import InputSpec
 
@@ -21,3 +23,17 @@ class TwoMatMul(tnn.Module):
 
     def forward(self, params, x, ctx=None):
         return self.fc2(params["fc2"], self.fc1(params["fc1"], x, ctx=ctx), ctx=ctx)
+
+
+def assert_trees_equal(ours, theirs, path=()):
+    """Every leaf of a JAX param tree equal, bit for bit, to the port's
+    (same keys, shapes and dtypes)."""
+    if isinstance(theirs, dict):
+        assert set(ours) == set(theirs), (path, sorted(ours), sorted(theirs))
+        for k in theirs:
+            assert_trees_equal(ours[k], theirs[k], path + (k,))
+        return
+    a = np.asarray(theirs)
+    b = ours.detach().cpu().numpy()
+    assert a.shape == b.shape and a.dtype == b.dtype, path
+    assert a.tobytes() == b.tobytes(), path
