@@ -147,8 +147,10 @@ Phases (any failed check exits non-zero; each prints its seconds):
    ppl with only its two matmul kernels swapped; prints
    the bf16 model's ppl beside them.
 7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 544 tokens through
-   an engine with an int8 cache and ``fused_attention=True`` (flash decode in
-   every layer of every one-token forward, past the 512-token window).
+   the first 9 of the 270M's 18 layers (``DECODE_SCORING_LAYERS``; a depth
+   cut for the time limit) and an engine with an int8 cache and
+   ``fused_attention=True`` (flash decode in every layer of every one-token
+   forward, past the 512-token window).
    Checks the launch counts and the NLL against ``fused_attention=False``;
    prints ``score_ppl`` for the float, int8 and int4 caches and steps/s.
 8. Launch counts and profiles (below).
@@ -225,6 +227,39 @@ Phases (any failed check exits non-zero; each prints its seconds):
    float64). Phase 3 also runs W4 and W8 at N=2 (512 rows) and W8 and Q8
    (with an int32 bias, bit-equal) at GPT-2's sites (8192 rows), float32 x,
    timed beside their bounds. Prints the phase's seconds and peak memory.
+12. Parallelism (``onnx_quantize_tpu_torch/parallel``): one world of two
+   ranks, both on cuda:0, started with ``torch.multiprocessing`` (spawn)
+   after phase 2's build, over gloo, chosen and printed (NCCL refuses two
+   ranks on one device); ``parallel.comm`` stages every CUDA tensor through
+   pinned host memory and counts it. The parent builds every tree and the
+   single-device references first and shares them with the ranks; each rank
+   first tries gloo's collectives once on CUDA tensors (a measurement,
+   printed), then the legs, each printing its seconds, its collectives
+   (calls, bytes, staged bytes) and its kernel launches: (a) the TP engine
+   at Gemma-3-4B's full width, 6 layers (W4 g128, int8 head, fused, int8
+   KV, flash decode) on (data 1, model 2): prefill B=8 T=128, 16 greedy
+   steps (exactly 24 W4, 1 W8 and 6 flash-decode launches a step on each
+   rank), 8 requests through the scheduler (chunk 2, pipeline 2); (b) EP at
+   Qwen1.5-MoE-A2.7B's full width, 2 layers, stacked (g128) and fused (g64)
+   experts, 30 a rank: prefill B=8 T=128 and 8 greedy steps; then
+   ``a2a_moe_mlp`` over 2 x 64 token rows against the one-device MoE MLP,
+   with the worst-case capacity bit-equal to none and a capacity of 4
+   dropping; (c) ``tp_ops`` and ``collective`` at Gemma-3-4B's MLP shapes
+   (M=256, K=2560, 10240, W4 g128) against the one-device matmul chain; (d)
+   PP, Llama-3.2-1B at full width and depth in 2 stages, 4 microbatches of
+   2 x 512, flash attention in the stages; (e) CP, Llama-3.2-1B, one
+   2048-token window in 2 shards (``CP_RUNS``: ring and gather, zigzag and
+   contiguous, at 16 layers and at 1, beside a one-ulp embedding control),
+   and ``perplexity_from_tokens(mesh=)`` over 4,096 tokens against the call
+   without a mesh; (f) DP, the main path's 270M tree at B=32 on (data 2,
+   model 1), greedy and then sampled from a seeded generator. PP and DP
+   must give the single-device logits and tokens bit for bit; TP and EP
+   within ``PARALLEL_TP_TOL``/``PARALLEL_EP_TOL`` of the largest logit, which
+   a control with bf16 all-reduce partials must fail, and greedy streams
+   equal up to a near-tie; the ranks' launches are added to the kernels
+   line. Phase 3 also runs W4 and W8 at the 4B's rank-local shapes and
+   flash decode at 4 query heads on 2 KV heads. A failed rank fails the
+   phase.
 
 Phase 8 counts the device operations (as the nodes of a CUDA graph
 captured from one call) of the activation quantizer, the zero pad of its
@@ -416,6 +451,9 @@ W4_ROWS = (1, 16, 32, 33, 64, 65, 2048, 4096)
 # The rows of M of phase 10's target: a decode step at B = 8 and a verify of
 # 8 x (k + 1) tokens.
 SPEC_ROWS = (8, 40)
+# The rows of M of phase 12's TP leg: a decode step at B = 8 and a prefill of
+# 8 x 128 tokens.
+SHARD_ROWS = (8, 1024)
 # name, kernel, K, N, dtype, group_size, symmetric, rows of M, timed
 KERNEL_CASES = [
     ("qkv", "w4", 640, 1536, "uint4", 128, False, W4_ROWS, True),
@@ -458,6 +496,15 @@ KERNEL_CASES = [
     ("gemma3_1b_gate_up", "w4", 1152, 13824, "uint4", 128, False, SPEC_ROWS, False),
     ("gemma3_1b_down", "w4", 6912, 1152, "uint4", 128, False, SPEC_ROWS, False),
     ("gemma3_1b_lm_head", "w8", 1152, 262144, "int8", -1, True, SPEC_ROWS, False),
+    # Phase 12's rank-local shapes, Gemma-3-4B at tp = 2: W4 at the fused qkv
+    # (N = 2048), o (K = 1024, 8 groups), fused gate_up (N = 10240) and down
+    # (K = 5120, 40 groups) shards, and W8 on the half lm_head (2560 x
+    # 131,072); timed at their rows, apart from the kernels line.
+    ("gemma3_4b_tp2_qkv", "w4", 2560, 2048, "uint4", 128, False, SHARD_ROWS, True),
+    ("gemma3_4b_tp2_o", "w4", 1024, 2560, "uint4", 128, False, SHARD_ROWS, True),
+    ("gemma3_4b_tp2_gate_up", "w4", 2560, 10240, "uint4", 128, False, SHARD_ROWS, True),
+    ("gemma3_4b_tp2_down", "w4", 5120, 2560, "uint4", 128, False, SHARD_ROWS, True),
+    ("gemma3_4b_tp2_lm_head", "w8", 2560, 131072, "int8", -1, True, (8,), True),
     # The A8 arm's sites (dynamic int8 activations): W4A8 on the body, W8A8
     # on the lm_head, also at a scoring window's M=2048; then odd shapes: a
     # pad group with a ragged N, int4 with ragged M, uint8 symmetric (shifted
@@ -606,11 +653,13 @@ def run_kernel_checks(gen, cases=KERNEL_CASES) -> dict:
                 res = results[kernel]
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 if (timed and xdt == torch.bfloat16
-                        and (kernel != "w4" or M in W4_TIMED)):
+                        and (kernel != "w4" or M in W4_TIMED + SHARD_ROWS)):
                     iters = 50 if M <= 32 else 20
                     ms = cuda_time_ms(lambda: wrapper(*ops, **kw), iters)
                     plain_ms = cuda_time_ms(lambda: plain(*ops, **kw), iters)
-                    line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                    b_ms, b_by = bound(nbytes(*ops, y), 2 * M * K * N, MATMUL_KIND[kernel])
+                    line += (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+                             f"({b_by})")
                     if M == 32:  # one decode step's shapes
                         res["ms"] += ms
                         res["plain_ms"] += plain_ms
@@ -1022,15 +1071,20 @@ def run_attention_checks(gen) -> dict:
     B, S = 32, 4096
     ragged = [0, 127, 128, 511, 512, 4095, S]
     ragged += torch.randint(0, S, (B - len(ragged),), generator=gen, device="cuda").tolist()
+    # The last is phase 12's TP decode, Gemma-3-4B at tp = 2: 4 query heads on
+    # 2 KV heads of 256, B = 8, its window 1024; timed beside its bound.
     fd_cases = [("fd_B32_S4096_g4_D256", (B, S, 4, 1, 256, ragged)),
                 ("fd_odd_g1_D128_S128", (3, 128, 2, 2, 128, [0, 127, 128])),
                 ("fd_odd_kv2_D128", (4, 512, 4, 2, 128, [0, 63, 300, 512])),
-                ("fd_odd_kv2_g4_D256_S128", (2, 128, 8, 2, 256, [127, 5]))]
+                ("fd_odd_kv2_g4_D256_S128", (2, 128, 8, 2, 256, [127, 5])),
+                ("fd_tp2_g2_D256", (8, 1024, 4, 2, 256, [0, 127, 128, 511, 640, 1023, 1024,
+                                                         900]))]
     err_max = 0.0
     for name, shape in fd_cases:
         args = fd_inputs(*shape, gen)
         b, s_len, _, hkv = shape[:4]
-        for window in (512, 16, None):
+        timed = name == "fd_tp2_g2_D256"
+        for window in (512, 16, 1024, None) if timed else (512, 16, None):
             plan = fd.fd_plan(b, hkv, s_len, window, sms)
             got = fd.flash_decode_int8(*args, window=window)
             again = fd.flash_decode_int8(*args, window=window)
@@ -1040,8 +1094,19 @@ def run_attention_checks(gen) -> dict:
             check(torch.equal(got, again), f"{name} window={window}: two flash-decode launches "
                                            "differ")
             err_max = max(err_max, err)
-            print(f"kernel flash_decode {name} window={window}: max_abs_err={err:.3e} "
-                  f"splits={plan.splits} blocks={plan.blocks}", flush=True)
+            line = (f"kernel flash_decode {name} window={window}: max_abs_err={err:.3e} "
+                    f"splits={plan.splits} blocks={plan.blocks}")
+            if timed and window in (1024, None):
+                q, k, ks, v, vs, pos = args
+                rows = live_rows(pos, s_len, window)
+                b_ms, b_by = bound(nbytes(q, pos, got) + rows * nbytes(k[0, 0], v[0, 0],
+                                                                      ks[0, 0], vs[0, 0]),
+                                   4 * rows * q.shape[1] * q.shape[2], "float32")
+                ms = cuda_time_ms(lambda: fd.flash_decode_int8(*args, window=window), 20)
+                plain_ms = cuda_time_ms(
+                    lambda: fd.flash_decode_int8_reference(*args, window=window), 5)
+                line += f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})"
+            print(line, flush=True)
     check(fd.fd_plan(B, 1, S, 512, sms).splits > 1 and fd.fd_plan(B, 1, S, None, sms).splits > 1,
           "the main flash-decode shape launched a plan without a split")
     # One decode step's shapes: B=32 sequences at position 640 of a 1024 cache.
@@ -2240,7 +2305,7 @@ def moe_a8_arm(model, tree, card: str, steps: int = 8) -> dict:
 
 def moe_scoring_arm(model, tree, card: str) -> dict:
     """Arm (e): one 2048-token window of (a)'s tree through
-    ``perplexity_from_tokens``: flash attention in all 24 layers (D=128, MHA);
+    ``perplexity_from_tokens``: flash attention in every layer (D=128, MHA);
     the window's NLL within 0.2% of the plain run's."""
     from onnx_quantize_tpu_torch.tools import perplexity_from_tokens
 
@@ -2732,9 +2797,22 @@ def run_window_scoring(model, qparams, a8params, fparams, card) -> tuple[dict, d
 FUSED_NLL_REL_TOL = 2e-3
 
 
+# Phase 7's depth: the first 9 of the 270M's 18 layers (one global, eight
+# sliding-window), cut to keep the run inside its time limit on a slow host:
+# each of its one-token forwards is host-bound, so its time follows depth.
+DECODE_SCORING_LAYERS = 9
+
+
 def run_decode_scoring(model, qparams, card) -> dict:
     from onnx_quantize_tpu_torch.engine import InferenceEngine
+    from onnx_quantize_tpu_torch.models.gemma3 import Gemma3
 
+    full = model.cfg.num_layers
+    model = Gemma3(dataclasses.replace(model.cfg, num_layers=DECODE_SCORING_LAYERS))
+    qparams = {k: v for k, v in qparams.items()
+               if not k.startswith("layers.") or int(k.split(".")[1]) < DECODE_SCORING_LAYERS}
+    print(f"phase 7 depth cut: the first {DECODE_SCORING_LAYERS} of the model's {full} layers",
+          flush=True)
     cfg = model.cfg
     B, T, max_seq = 32, 544, 1024
     ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (B, T))
@@ -4029,6 +4107,710 @@ def run_families(model, qparams, card: str) -> dict:
     return launches
 
 
+# -- phase 12: parallelism, two ranks sharing the card --------------------------------
+
+# One world of two ranks, both on cuda:0. The backend is gloo, chosen here:
+# NCCL refuses two ranks on one device, and this run has one GPU. Times in
+# this phase are two ranks time-sharing one card through host-staged gloo
+# collectives, not a tensor-parallel speed.
+PARALLEL_RANKS = 2
+PARALLEL_BACKEND = "gloo"
+PARALLEL_TIMEOUT_S = 480
+# Each leg against the port's single-device run of the same tree, on bars set
+# from this phase's readings on an H100 (PERF.md section 6), which repeat
+# to the digit from run to run. PP and DP run every
+# kernel at the single-device shapes and sums, so their logits must be the
+# single-device ones bit for bit (torch.equal), and their greedy and sampled
+# tokens equal. TP and EP change the kernels' local shapes (so their float32
+# summation order) and add the row-parallel partials in one float32 sum; a
+# flipped bf16 rounding then passes through the layers. Their bars (shares of
+# the largest |logit|) lie between their readings (TP 0.00300; EP 0.00714
+# stacked, 0.00694 fused) and a control's, which must fail them: the same
+# engine with every all-reduce's partials rounded to bf16 first, a collective
+# in the stream's precision (TP 0.00450; EP 0.01071 stacked, 0.03516 fused).
+PARALLEL_TP_TOL = 0.0037
+PARALLEL_EP_TOL = 0.0087
+# A greedy token may leave the single-device stream only at a step whose
+# single-device top-2 margin (share of the row's largest |logit|) is under
+# twice the leg's bar: both logits of the pair may move by the bar.
+# tp_ops and collective (leg c): the local kernels and one float32 sum of two
+# partials against one kernel over the whole K: 1e-4 of the largest output
+# (phase 3's bar for a kernel against its plain version).
+PARALLEL_MATMUL_TOL = 1e-4
+# a2a_moe_mlp against the one-device MoE MLP: each expert's output rounds to
+# bf16 at the site (2^-9) and the token's k contributions add in float32 in
+# another order: 1e-2 of the largest output.
+PARALLEL_A2A_TOL = 1e-2
+# Window perplexity on the CP mesh against the call without one: mean NLL
+# within 2e-3 relative (phase 6's bar for two attention implementations).
+PARALLEL_NLL_TOL = 2e-3
+GEMMA3_4B_TP_LAYERS = 6  # the 5:1 pattern's first global layer is the sixth
+QWEN_EP_LAYERS = 2
+# CP's runs, (layers, mode, layout): bar. The gather mode attends the
+# gathered K/V densely, as the single-device forward does: in the contiguous
+# layout its sums run over the keys in the same order, and it gives the
+# single-device logits bit for bit (0: torch.equal); the zigzag layout
+# reorders the keys in the softmax's sum and in P.V, and the ring adds the
+# streaming softmax's rescales. Those differ by about a bf16 step of the
+# logits at one layer, as a control with one bf16 ulp on 0.1% of the
+# embedding does (0.00852), and the model's 16 layers amplify that about
+# 3.5x (the control 0.02924). Their bars sit at 1.25x their readings.
+CP_RUNS = {(16, "ring", "zigzag"): 0.0375, (16, "gather", "zigzag"): 0.027,
+           (16, "gather", "contiguous"): 0.0, (1, "ring", "zigzag"): 0.0107,
+           (1, "gather", "zigzag"): 0.0071, (1, "gather", "contiguous"): 0.0}
+
+
+@contextlib.contextmanager
+def bf16_partials():
+    """A control: every ``comm.all_reduce`` with its partials rounded to bf16
+    before the sum, as a collective in the stream's precision would."""
+    from onnx_quantize_tpu_torch.parallel import comm
+
+    exact = comm.all_reduce
+    comm.all_reduce = lambda x, axis: exact(x.to(torch.bfloat16).to(x.dtype), axis)
+    try:
+        yield
+    finally:
+        comm.all_reduce = exact
+
+
+def greedy_reference(engine, ids, lengths, steps: int) -> dict:
+    """The single-device engine's prefill logits and greedy stream, with each
+    step's top-2 margin as a share of its row's largest |logit|."""
+    cache, logits = engine.prefill(engine.new_cache(), ids, lengths)
+    first_logits = logits.float().cpu()
+    tokens, margins = [], []
+    for step in range(steps + 1):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append(((top[:, 0] - top[:, 1]) / logits.float().abs().amax(-1)).cpu())
+        tok = torch.argmax(logits, dim=-1)
+        tokens.append(tok.cpu())
+        if step < steps:
+            cache, logits = engine.decode(cache, tok)
+    return {"logits": first_logits, "tokens": torch.stack(tokens, 1),
+            "margins": torch.stack(margins, 1)}
+
+
+def check_greedy(label: str, got_tokens, want: dict, tie: float) -> str:
+    """Rows equal to the single-device stream, or first leaving it at a step
+    whose single-device margin is under ``tie``."""
+    got_tokens = torch.as_tensor(got_tokens).cpu().long()
+    equal, left = 0, []
+    for row in range(got_tokens.shape[0]):
+        diff = (got_tokens[row] != want["tokens"][row]).nonzero()
+        if len(diff) == 0:
+            equal += 1
+            continue
+        j = int(diff[0])
+        margin = float(want["margins"][row, j])
+        left.append(f"row {row} at step {j}, margin {margin:.4f}")
+        check(margin < tie, f"{label}: row {row} leaves the single-device stream at step {j}, "
+                            f"where its top-2 margin is {margin:.4f} (tie bar {tie})")
+    return (f"{equal}/{got_tokens.shape[0]} rows' greedy streams equal"
+            + (f" ({'; '.join(left)}; tie bar {tie})" if left else ""))
+
+
+def logit_share(got, want) -> tuple[float, float]:
+    """(max, mean) |got - want| as shares of the largest |want|."""
+    got, want = got.float(), want.float().to(got.device)
+    peak = want.abs().max().item()
+    diff = (got - want).abs()
+    return diff.max().item() / peak, diff.mean().item() / peak
+
+
+def served_margin(engine, prompt, out, j: int) -> float:
+    """The single-device top-2 margin (share of the largest |logit|) of token
+    j of a served output, teacher-forced through a prefill of prompt + out[:j]."""
+    seq = list(prompt) + list(out[:j])
+    B = engine.max_batch
+    ids = np.zeros((B, len(seq)), np.int32)
+    ids[0] = seq
+    lengths = np.ones((B,), np.int32)
+    lengths[0] = len(seq)
+    _, logits = engine.prefill(engine.new_cache(), ids, lengths)
+    top = torch.topk(logits[0].float(), 2).values
+    return ((top[0] - top[1]) / logits[0].float().abs().max()).item()
+
+
+def check_served_outputs(label: str, got, want, engine, prompts, tie: float) -> str:
+    same = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            same += 1
+            continue
+        j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        margin = served_margin(engine, prompts[i], w, j)
+        check(margin < tie, f"{label}: request {i} leaves the single-device output at token "
+                            f"{j}, margin {margin:.4f} (tie bar {tie})")
+    return f"{same}/{len(want)} served outputs equal"
+
+
+def probe_gloo_cuda(rank: int) -> dict:
+    """A measurement: which gloo collectives accept a CUDA tensor on this
+    torch, each tried once on a small tensor on the card, its result checked.
+    The port stages every CUDA tensor itself under gloo (``parallel.comm``),
+    so nothing depends on the answer."""
+    import torch.distributed as dist
+
+    def all_reduce():
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        return x, torch.full((4,), 3.0)
+
+    def all_gather():
+        parts = [torch.empty(4, device="cuda") for _ in range(PARALLEL_RANKS)]
+        dist.all_gather(parts, torch.full((4,), float(rank), device="cuda"))
+        return torch.cat(parts), torch.tensor([0.0] * 4 + [1.0] * 4)
+
+    def all_to_all():
+        out = torch.empty(2, device="cuda")
+        dist.all_to_all_single(out, torch.tensor([10.0 * rank, 10.0 * rank + 1], device="cuda"))
+        return out, torch.tensor([float(rank), 10.0 + rank])
+
+    def broadcast():
+        x = torch.full((4,), float(rank), device="cuda")
+        dist.broadcast(x, src=1)
+        return x, torch.ones(4)
+
+    found = {}
+    for name, fn in (("all_reduce", all_reduce), ("all_gather", all_gather),
+                     ("all_to_all", all_to_all), ("broadcast", broadcast)):
+        try:
+            got, want = fn()
+            torch.cuda.synchronize()
+            found[name] = "ok" if torch.equal(got.cpu(), want) else "wrong result"
+        except (RuntimeError, ValueError) as exc:
+            found[name] = f"raises: {str(exc).splitlines()[0][:120]}"
+    return found
+
+
+def leg_run(name: str, fn, results: dict) -> None:
+    """Run one leg in a rank: its seconds, collectives and kernel launches."""
+    from onnx_quantize_tpu_torch.parallel import comm
+
+    comm.reset_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    stats = {k: v for k, v in comm.stats.items() if k != "ops"} | {"ops": dict(comm.stats["ops"])}
+    results[name] = {"out": out, "seconds": time.perf_counter() - t0, "comm": stats,
+                     "launches": {k: v for k, v in kernel_counts().items() if v}}
+    if results["rank"] == 0:
+        print(f"phase 12 rank 0: leg ({name}) done in {results[name]['seconds']:.2f} s",
+              flush=True)
+
+
+def sampled_stream(engine, ids, lengths, steps: int) -> torch.Tensor:
+    """Prefill, then ``steps`` tokens sampled at temperature 1 from a
+    generator seeded SEED on the card: (B, 1 + steps) on the host."""
+    from onnx_quantize_tpu_torch.engine import SamplingParams, sample
+
+    sp = SamplingParams(temperature=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cache, logits = engine.prefill(engine.new_cache(), ids, lengths)
+    first = sample(logits, gen, sp)
+    _, out = engine.decode_multi(cache, first, steps=steps, sampling=sp, generator=gen)
+    return torch.cat([first[:, None].int(), out], 1).cpu()
+
+
+def parallel_rank(rank: int, payload: dict, workdir: str) -> None:
+    """One rank of phase 12's world: every leg on this rank's shards."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from onnx_quantize_tpu_torch.engine import ContinuousBatchingScheduler, InferenceEngine
+    from onnx_quantize_tpu_torch.models.gemma3 import Gemma3
+    from onnx_quantize_tpu_torch.parallel import collective, cp, pp, tp_ops
+    from onnx_quantize_tpu_torch.parallel.ep import a2a_moe_mlp
+    from onnx_quantize_tpu_torch.parallel.mesh import Mesh, make_mesh, use_mesh
+    from onnx_quantize_tpu_torch.parallel.tp import build_param_specs, shard_params_local
+    from onnx_quantize_tpu_torch.tools.perplexity import perplexity_from_tokens
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(PARALLEL_BACKEND, init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=PARALLEL_RANKS,
+                            timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S // 2))
+    results = {"rank": rank, "probe": probe_gloo_cuda(rank)}
+    tp_mesh = make_mesh(model_parallel=2)                # (data 1, model 2)
+    dp_mesh = make_mesh(model_parallel=1)                # (data 2, model 1)
+    ep_mesh = Mesh(np.arange(PARALLEL_RANKS), ("ep",))
+    pipe_mesh = pp.make_pipeline_mesh(PARALLEL_RANKS)
+    seq_mesh = cp.make_cp_mesh(PARALLEL_RANKS)
+    try:
+        # (a) TP engine: Gemma-3-4B.
+        a = payload["a"]
+        model = Gemma3(a["cfg"])
+
+        def leg_a():
+            engine = InferenceEngine(model, a["tree"], max_batch=8, max_seq=256, kv_quant=True,
+                                     dtype=torch.bfloat16, fused_attention=True, mesh=tp_mesh)
+            cache, logits = engine.prefill(engine.new_cache(), a["ids"], a["lengths"])
+            first = torch.argmax(logits, dim=-1)
+            torch.cuda.synchronize()
+            before = kernel_counts()
+            cache, gen = engine.decode_multi(cache, first, steps=a["steps"])
+            torch.cuda.synchronize()
+            decode = {k: v - before[k] for k, v in kernel_counts().items() if v - before[k]}
+            sched = ContinuousBatchingScheduler(engine, chunk=2, pipeline=2)
+            reqs = [sched.submit(p, max_new_tokens=a["new_tokens"]) for p in a["prompts"]]
+            sched.run()
+            with bf16_partials():
+                _, control = engine.prefill(engine.new_cache(), a["ids"], a["lengths"])
+            return {"logits": logits.float().cpu(), "control": control.float().cpu(),
+                    "tokens": torch.cat([first[:, None].int(), gen], 1).cpu(),
+                    "decode_launches": decode, "served": [r.output for r in reqs]}
+
+        leg_run("a", leg_a, results)
+        del model
+
+        # (b) EP: Qwen1.5-MoE-A2.7B, two layers, stacked and fused experts; a2a.
+        b = payload["b"]
+        model = Gemma3(b["cfg"])
+
+        def leg_b():
+            out = {}
+            for layout, tree in b["trees"].items():
+                engine = InferenceEngine(model, tree, max_batch=8, max_seq=256, kv_quant=True,
+                                         dtype=torch.bfloat16, mesh=tp_mesh)
+                cache, logits = engine.prefill(engine.new_cache(), b["ids"], b["lengths"])
+                first = torch.argmax(logits, dim=-1)
+                cache, gen = engine.decode_multi(cache, first, steps=b["steps"])
+                out[layout] = {"logits": logits.float().cpu(),
+                               "tokens": torch.cat([first[:, None].int(), gen], 1).cpu()}
+                with bf16_partials():
+                    _, control = engine.prefill(engine.new_cache(), b["ids"], b["lengths"])
+                out[layout]["control"] = control.float().cpu()
+                del engine, cache
+            stacked = b["a2a_experts"]
+            local = shard_params_local(stacked, build_param_specs(stacked, [(r".*", "expert")],
+                                                                  axis="ep"), ep_mesh)
+            m = b["x"].shape[0] // PARALLEL_RANKS
+            rows = slice(rank * m, (rank + 1) * m)
+            with use_mesh(ep_mesh):
+                for cap in (None, b["small_capacity"], m * b["top_i"].shape[1]):
+                    y = a2a_moe_mlp(b["x"][rows], local, b["top_p"][rows], b["top_i"][rows],
+                                    axis="ep", num_experts=b["cfg"].num_experts,
+                                    activation=b["cfg"].mlp_activation, capacity=cap)
+                    out[f"a2a_{cap}"] = y.cpu()
+            out["a2a_rows"] = (rows.start, rows.stop)
+            return out
+
+        leg_run("b", leg_b, results)
+        del model
+
+        # (c) tp_ops and collective at Gemma-3-4B's MLP shapes.
+        c = payload["c"]
+        gelu = (lambda h: torch.nn.functional.gelu(h, approximate="tanh"))
+
+        def leg_c():
+            x, h, up, down = c["x"], c["h"], c["up"], c["down"]
+            got = {
+                "column": tp_ops.column_parallel_matmul(x, up, tp_mesh, gather_output=True),
+                "column_local": tp_ops.column_parallel_matmul(x, up, tp_mesh,
+                                                              gather_output=False),
+                "row": tp_ops.row_parallel_matmul(h, down, tp_mesh),
+                "pair": tp_ops.tp_pair_matmul(x, up, down, tp_mesh, activation=gelu),
+                "allgather": collective.allgather_matmul(x, up, tp_mesh),
+                "reduce_scatter": collective.matmul_reduce_scatter(h, down, tp_mesh),
+                "sp_pair": collective.sequence_parallel_pair(x, up, down, tp_mesh,
+                                                             activation=gelu),
+            }
+            return {k: v.float().cpu() for k, v in got.items()}
+
+        leg_run("c", leg_c, results)
+
+        # (d) PP: Llama-3.2-1B, 16 layers in 2 stages, 4 microbatches of 2 x 512.
+        d = payload["d"]
+        model = Gemma3(d["cfg"])
+
+        def leg_d():
+            stage_tree, shared = pp.pipeline_stage_params(model, d["tree"], PARALLEL_RANKS)
+            logits = pp.pp_logits(model, stage_tree, shared, d["ids"], pipe_mesh,
+                                  microbatches=4, use_flash=True)
+            equal = torch.equal(logits.float(), d["want"].float())
+            return logit_share(logits, d["want"]) + (equal,)
+
+        leg_run("d", leg_d, results)
+
+        # (e) CP: one 2048-token window, CP_RUNS; then perplexity.
+        e = payload["e"]
+        models = {16: model, 1: Gemma3(dataclasses.replace(d["cfg"], num_layers=1))}
+
+        def leg_e():
+            out = {}
+            for layers, mode, layout in CP_RUNS:
+                logits = cp.cp_logits(models[layers], e["tree"], e["ids"], seq_mesh, mode=mode,
+                                      layout=layout)
+                want = e["want"][layers]
+                out[(layers, mode, layout)] = (logit_share(logits, want)
+                                               + (torch.equal(logits.float(), want.float()),))
+                del logits
+            out["ppl"] = perplexity_from_tokens(model, e["tree"], e["tokens"], mesh=seq_mesh)
+            return out
+
+        leg_run("e", leg_e, results)
+        del model, models
+
+        # (f) DP: the main path's Gemma-3-270M, 16 rows a rank, greedy and sampled.
+        f = payload["f"]
+        model = Gemma3(f["cfg"])
+
+        def leg_f():
+            engine = InferenceEngine(model, f["tree"], max_batch=32, max_seq=512, kv_quant=True,
+                                     dtype=torch.bfloat16, mesh=dp_mesh)
+            cache, logits = engine.prefill(engine.new_cache(), f["ids"], f["lengths"])
+            first = torch.argmax(logits, dim=-1)
+            _, gen = engine.decode_multi(cache, first, steps=f["steps"])
+            return {"logits": logits.float().cpu(),
+                    "tokens": torch.cat([first[:, None].int(), gen], 1).cpu(),
+                    "sampled": sampled_stream(engine, f["ids"], f["lengths"], f["steps"])}
+
+        leg_run("f", leg_f, results)
+        results["meshes"] = {name: (dict(mesh.shape), dict(mesh.coords), mesh.backend)
+                             for name, mesh in (("tp", tp_mesh), ("dp", dp_mesh))}
+        torch.save(results, f"{workdir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_payload(model270, tree270, card: str) -> tuple[dict, dict]:
+    """Every leg's global tree and inputs, and the single-device references,
+    all computed here in the parent: (payload for the ranks, references)."""
+    import onnx_quantize_tpu_torch as oqt
+    from onnx_quantize_tpu_torch.engine import ContinuousBatchingScheduler, InferenceEngine
+    from onnx_quantize_tpu_torch.engine import prepare_kernel_scales
+    from onnx_quantize_tpu_torch.models.gemma3 import GEMMA3_4B, Gemma3, fuse_gemma3_projections
+    from onnx_quantize_tpu_torch.models.llama import LLAMA32_1B
+    from onnx_quantize_tpu_torch.models.moe import (
+        QWEN15_MOE_A27B,
+        fuse_moe_experts,
+        stack_moe_experts,
+    )
+    from onnx_quantize_tpu_torch.ops import quantized_matmul
+    from onnx_quantize_tpu_torch.tools.perplexity import perplexity_from_tokens
+
+    head = oqt.QConfig(weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+                       ignore=[r"^layers\."])
+
+    def w4_tree(model, params, gs=128, ignore=("lm_head",)):
+        q, _ = oqt.quantize(model, params, oqt.QConfig(
+            weights=oqt.QWeightArgs(dtype="uint4", group_size=gs), ignore=list(ignore)))
+        q, _ = oqt.quantize(model, q, head)
+        return fuse_gemma3_projections(q)
+
+    rng = np.random.default_rng(SEED)
+    payload, refs = {}, {}
+    # (a) Gemma-3-4B at full width, 6 layers.
+    cfg = dataclasses.replace(GEMMA3_4B, dtype="bfloat16", num_layers=GEMMA3_4B_TP_LAYERS)
+    model = Gemma3(cfg)
+    tree = w4_tree(model, model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    ids = rng.integers(1, cfg.vocab_size, size=(8, 128)).astype(np.int32)
+    lengths = np.full((8,), 128, np.int32)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(16, 97, size=8)]
+    engine = InferenceEngine(model, tree, max_batch=8, max_seq=256, kv_quant=True,
+                             dtype=torch.bfloat16, fused_attention=True)
+    refs["a"] = greedy_reference(engine, ids, lengths, 16)
+    sched = ContinuousBatchingScheduler(engine, chunk=2, pipeline=2)
+    reqs = [sched.submit(p, max_new_tokens=8) for p in prompts]
+    sched.run()
+    refs["a"].update(served=[r.output for r in reqs], engine=engine, prompts=prompts)
+    payload["a"] = dict(cfg=cfg, tree=tree, ids=ids, lengths=lengths, steps=16, prompts=prompts,
+                        new_tokens=8)
+    # (b) Qwen1.5-MoE-A2.7B at full width, 2 layers: g128 stacked, g64 fused.
+    cfg = dataclasses.replace(QWEN15_MOE_A27B, dtype="bfloat16", num_layers=QWEN_EP_LAYERS)
+    model = Gemma3(cfg)
+    params = moe_params(model)
+    trees = {}
+    for layout, gs in (("stacked", 128), ("fused", 64)):
+        t = w4_tree(model, params, gs, ("lm_head", r"\.router$", r"\.shared_gate$"))
+        trees[layout] = stack_moe_experts(fuse_moe_experts(prepare_kernel_scales(t)))
+    del params
+    check("_stacked_experts" in trees["stacked"]["layers.0"]["mlp"]
+          and "_fused_experts" in trees["fused"]["layers.0"]["mlp"], "phase 12 (b) layouts")
+    ids_b = rng.integers(1, cfg.vocab_size, size=(8, 128)).astype(np.int32)
+    refs["b"] = {}
+    with ragged_prefill(model, False):
+        for layout, t in trees.items():
+            engine = InferenceEngine(model, t, max_batch=8, max_seq=256, kv_quant=True,
+                                     dtype=torch.bfloat16)
+            refs["b"][layout] = greedy_reference(engine, ids_b, lengths, 8)
+            del engine
+    mlp = model.layers[0].mlp
+    mlp_params = trees["stacked"]["layers.0"]["mlp"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = (torch.randn((2 * 64, cfg.hidden_size), generator=gen, device="cuda")).to(torch.bfloat16)
+    top_p, top_i = mlp._routing(mlp_params, x)
+    from onnx_quantize_tpu_torch.models.gemma3 import stacked_expert_mlp
+
+    combine = mlp._combine_weights(top_p, top_i, cfg.num_experts)
+    routed = torch.zeros((x.shape[0], cfg.hidden_size), dtype=torch.float32, device="cuda")
+    for ex in range(cfg.num_experts):
+        w_e = combine[:, ex]
+        ye = stacked_expert_mlp(mlp_params["_stacked_experts"], ex,
+                                x * (w_e > 0).to(x.dtype)[:, None], mlp.activation)
+        routed += ye.float() * w_e[:, None]
+    refs["b"]["a2a"] = routed.cpu()
+    payload["b"] = dict(cfg=cfg, trees=trees, ids=ids_b, lengths=lengths, steps=8, x=x,
+                        top_p=top_p, top_i=top_i, small_capacity=4,
+                        a2a_experts=mlp_params["_stacked_experts"])
+    # (c) Gemma-3-4B's MLP shapes: M = 256, K = 2560, intermediate 10240, W4 g128.
+    up = random_qtensor(2560, 10240, "uint4", 128, False, gen)
+    down = random_qtensor(10240, 2560, "uint4", 128, False, gen)
+    xc = torch.randn((256, 2560), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def gelu(t):
+        return torch.nn.functional.gelu(t, approximate="tanh")
+
+    hc = gelu(quantized_matmul(xc, up)).to(torch.bfloat16)
+    y_up = quantized_matmul(xc, up)
+    refs["c"] = {"column": y_up, "row": quantized_matmul(hc, down),
+                 "pair": quantized_matmul(gelu(y_up), down),
+                 "sp_pair": quantized_matmul(gelu(y_up).to(torch.bfloat16), down)}
+    refs["c"] = {k: v.float().cpu() for k, v in refs["c"].items()}
+    payload["c"] = dict(x=xc, h=hc, up=up, down=down)
+    # (d, e) Llama-3.2-1B at full width and depth.
+    cfg = dataclasses.replace(LLAMA32_1B, dtype="bfloat16")
+    model = Gemma3(cfg)
+    tree = w4_tree(model, llama_params(model))
+    ids_d = rng.integers(1, cfg.vocab_size, size=(8, 512)).astype(np.int32)
+    model.use_flash = True
+    with torch.inference_mode():
+        want_d = model(tree, torch.as_tensor(ids_d, dtype=torch.int64, device="cuda"))
+    payload["d"] = dict(cfg=cfg, tree=tree, ids=ids_d, want=want_d)
+    ids_e = rng.integers(1, cfg.vocab_size, size=(1, 2048)).astype(np.int32)
+    tokens = rng.integers(1, cfg.vocab_size, size=4096)
+    # The ring attends in plain torch; so do these references.
+    models = {16: model, 1: Gemma3(dataclasses.replace(cfg, num_layers=1))}
+    bumped, n_bumped = bump_embedding(tree)
+    want_e, control_e = {}, {}
+    with torch.inference_mode():
+        ids_t = torch.as_tensor(ids_e, dtype=torch.int64, device="cuda")
+        for layers, m in models.items():
+            m.use_flash = False
+            want_e[layers] = m(tree, ids_t)
+            control_e[layers] = logit_share(m(bumped, ids_t), want_e[layers])
+    del bumped
+    model.use_flash = "auto"
+    refs["e"] = {"ppl": perplexity_from_tokens(model, tree, tokens), "control": control_e,
+                 "bumped": n_bumped}
+    payload["e"] = dict(tree=tree, ids=ids_e, want=want_e, tokens=tokens)
+    # (f) the main path's tree, B = 32; rows 0 and 16 (the first of each data
+    # rank) hold one prompt, and must still sample different streams.
+    ids_f = rng.integers(1, model270.cfg.vocab_size, size=(32, 128)).astype(np.int32)
+    ids_f[16] = ids_f[0]
+    lengths_f = np.full((32,), 128, np.int32)
+    engine = InferenceEngine(model270, tree270, max_batch=32, max_seq=512, kv_quant=True,
+                             dtype=torch.bfloat16)
+    refs["f"] = greedy_reference(engine, ids_f, lengths_f, 16)
+    refs["f"]["sampled"] = sampled_stream(engine, ids_f, lengths_f, 16)
+    del engine
+    payload["f"] = dict(cfg=model270.cfg, tree=tree270, ids=ids_f, lengths=lengths_f, steps=16)
+    torch.cuda.synchronize()
+    return payload, refs
+
+
+def run_parallel(model270, tree270, card: str) -> dict:
+    """Phase 12: tensor, expert, pipeline, context and data parallelism on a
+    world of two ranks sharing the card (gloo), each leg held to the port's
+    single-device path on the same global tree. Returns the ranks' kernel
+    launches, summed."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    payload, refs = parallel_payload(model270, tree270, card)
+    t_refs = time.perf_counter() - t0
+    print(f"phase 12: trees and single-device references built in {t_refs:.1f} s; world of "
+          f"{PARALLEL_RANKS} ranks on cuda:0, backend {PARALLEL_BACKEND} (chosen: NCCL refuses "
+          f"two ranks on one device, and this run has one GPU)", flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        t1 = time.perf_counter()
+        ctx = mp.start_processes(parallel_rank, args=(payload, workdir), nprocs=PARALLEL_RANKS,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                check(time.monotonic() < deadline,
+                      f"phase 12's world still running after {PARALLEL_TIMEOUT_S} s")
+        except mp.ProcessRaisedException as exc:
+            raise SmokeFailure(f"a phase 12 rank failed:\n{exc}") from None
+        except mp.ProcessExitedException as exc:
+            raise SmokeFailure(f"a phase 12 rank exited: {exc}") from None
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        world_s = time.perf_counter() - t1
+        ranks = [torch.load(f"{workdir}/rank{r}.pt", weights_only=False)
+                 for r in range(PARALLEL_RANKS)]
+    del payload
+    torch.cuda.ipc_collect()  # the ranks' handles on the shared trees are gone
+    print(f"gloo on CUDA tensors ({torch.__version__}), one call each (a measurement: the port "
+          f"stages every CUDA tensor under gloo): "
+          + ", ".join(f"{k} {v}" for k, v in ranks[0]["probe"].items())
+          + "; send/recv not tried", flush=True)
+    print(f"meshes: {ranks[0]['meshes']}, {ranks[1]['meshes']}", flush=True)
+
+    def header(leg: str, what: str) -> str:
+        secs = max(r[leg]["seconds"] for r in ranks)
+        comm_ = ranks[0][leg]["comm"]
+        return (f"phase 12 ({leg}) {what}, two ranks sharing {card}: {secs:.2f} s (the slower "
+                f"rank); rank 0's collectives {comm_['calls']} ({comm_['bytes']} B; "
+                f"{comm_['ops']}), staged {comm_['staged_calls']} calls {comm_['staged_bytes']} B; "
+                f"launches per rank {[r[leg]['launches'] for r in ranks]}")
+
+    def held(label: str, got, want, control, tol: float) -> str:
+        """Logits within ``tol`` of the largest, and the bf16-partials control
+        outside it."""
+        share, mean = logit_share(got, want)
+        ctrl, _ = logit_share(control, want)
+        check(share <= tol, f"{label}: prefill logits {share:.5f} of the largest from "
+                            f"single-device (tol {tol})")
+        check(ctrl > tol, f"{label}: the bf16-partials control ({ctrl:.5f}) passes the bar {tol}")
+        return (f"{label} prefill logits max {share:.5f} mean {mean:.6f} of max|logit| (tol "
+                f"{tol}; bf16-partials control {ctrl:.5f})")
+
+    # (a)
+    want = refs["a"]
+    lines = []
+    for r, res in enumerate(ranks):
+        out = res["a"]["out"]
+        lines.append(held(f"rank {r}", out["logits"], want["logits"], out["control"],
+                          PARALLEL_TP_TOL))
+        lines.append(check_greedy(f"(a) rank {r}", out["tokens"], want, 2 * PARALLEL_TP_TOL))
+        lines.append(check_served_outputs(f"(a) rank {r}", out["served"], want["served"],
+                                          want["engine"], want["prompts"], 2 * PARALLEL_TP_TOL))
+        layers = GEMMA3_4B_TP_LAYERS
+        check(out["decode_launches"] == {"w4": 16 * 4 * layers, "w8": 16,
+                                         "flash_decode": 16 * layers},
+              f"(a) rank {r}: 16 decode steps launched {out['decode_launches']}")
+    print(header("a", f"TP engine, Gemma-3-4B ({GEMMA3_4B_TP_LAYERS} layers, full width, "
+                      "W4 g128 + int8 head, int8 KV, flash decode) on (data 1, model 2): "
+                      "prefill B=8 T=128, 16 greedy steps, 8 served requests, a control prefill")
+          + ": " + "; ".join(lines), flush=True)
+    del want["engine"]
+    # (b)
+    lines = []
+    for r, res in enumerate(ranks):
+        out = res["b"]["out"]
+        for layout in ("stacked", "fused"):
+            lines.append(held(f"rank {r} {layout}", out[layout]["logits"],
+                              refs["b"][layout]["logits"], out[layout]["control"],
+                              PARALLEL_EP_TOL)
+                         + ", " + check_greedy(f"(b) {layout} rank {r}", out[layout]["tokens"],
+                                               refs["b"][layout], 2 * PARALLEL_EP_TOL))
+        lo, hi = out["a2a_rows"]
+        exact = out["a2a_None"]
+        want_rows = refs["b"]["a2a"][lo:hi]
+        err = (exact - want_rows).abs().max().item() / refs["b"]["a2a"].abs().max().item()
+        check(err <= PARALLEL_A2A_TOL, f"(b) a2a rank {r}: {err:.4e} of the largest output")
+        worst = out[f"a2a_{(hi - lo) * 4}"]
+        dropped = out["a2a_4"]
+        check(torch.equal(worst, exact), f"(b) a2a rank {r}: worst-case capacity differs from "
+                                         "capacity None")
+        check(bool(torch.isfinite(dropped).all()) and not torch.equal(dropped, exact),
+              f"(b) a2a rank {r}: capacity 4 dropped nothing")
+        lines.append(f"rank {r} a2a_moe_mlp (64 rows) max {err:.5f} of the largest output "
+                     f"(tol {PARALLEL_A2A_TOL}), worst-case capacity bit-equal, capacity 4 drops")
+    print(header("b", f"EP, Qwen1.5-MoE-A2.7B ({QWEN_EP_LAYERS} layers, full width, 30 experts "
+                      "a rank) on (data 1, model 2): prefill B=8 T=128, 8 greedy steps, "
+                      "stacked g128 and fused g64, a control prefill each; a2a_moe_mlp over "
+                      "2 x 64 rows") + ": " + "; ".join(lines), flush=True)
+    # (c)
+    lines = []
+    for r, res in enumerate(ranks):
+        out = res["c"]["out"]
+        wc = refs["c"]
+        blocks = {"column": wc["column"], "column_local": wc["column"].chunk(2, 1)[r],
+                  "row": wc["row"], "pair": wc["pair"],
+                  "allgather": wc["column"].chunk(2, 1)[r],
+                  "reduce_scatter": wc["row"].chunk(2, 0)[r],
+                  "sp_pair": wc["sp_pair"].chunk(2, 0)[r]}
+        errs = {}
+        for name, want_block in blocks.items():
+            check(out[name].shape == want_block.shape,
+                  f"(c) {name} rank {r}: shape {tuple(out[name].shape)}")
+            errs[name] = ((out[name] - want_block).abs().max().item()
+                          / want_block.abs().max().item())
+            check(errs[name] <= PARALLEL_MATMUL_TOL, f"(c) {name} rank {r}: {errs[name]:.3e} "
+                                                     "of the largest output")
+        lines.append(f"rank {r} " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    print(header("c", "tp_ops and collective at Gemma-3-4B's MLP shapes (M=256, K=2560, "
+                      "intermediate 10240, W4 g128) on (data 1, model 2)")
+          + f"; max err as a share of the largest output, tol {PARALLEL_MATMUL_TOL}: "
+          + "; ".join(lines), flush=True)
+    # (d)
+    lines = []
+    for r, res in enumerate(ranks):
+        share, mean, equal = res["d"]["out"]
+        check(equal, f"(d) rank {r}: pp logits not bit-equal to single-device ({share:.5f} of "
+                     "the largest)")
+        check(res["d"]["launches"].get("flash_attention", 0) == 4 * 8,
+              f"(d) rank {r}: launches {res['d']['launches']}")
+        lines.append(f"rank {r} logits bit-equal (max {share:.5f})")
+    print(header("d", "PP, Llama-3.2-1B (16 layers, full width, W4 g128 + int8 head) in 2 "
+                      "stages, 4 microbatches of 2 x 512, flash attention in the stages")
+          + "; against the single-device forward, torch.equal: " + "; ".join(lines), flush=True)
+    # (e)
+    lines = [f"control ({refs['e']['bumped']} embedding entries one bf16 ulp up) "
+             + ", ".join(f"{k} layers max {v[0]:.5f} mean {v[1]:.6f}"
+                         for k, v in refs["e"]["control"].items())]
+    for r, res in enumerate(ranks):
+        out = res["e"]["out"]
+        for run, tol in CP_RUNS.items():
+            share, mean, equal = out[run]
+            check(equal if tol == 0 else share <= tol,
+                  f"(e) {run} rank {r}: {share:.5f} of the largest logit (bar {tol or 'equal'})")
+            lines.append(f"rank {r} {run[0]} layers {run[1]} {run[2]} "
+                         + ("bit-equal" if equal else f"max {share:.5f} mean {mean:.6f}")
+                         + f" (bar {tol or 'torch.equal'})")
+        nll, want_nll = math.log(out["ppl"]), math.log(refs["e"]["ppl"])
+        check(abs(nll - want_nll) <= PARALLEL_NLL_TOL * abs(want_nll),
+              f"(e) rank {r}: perplexity {out['ppl']:.4f} vs {refs['e']['ppl']:.4f}")
+        lines.append(f"rank {r} window ppl {out['ppl']:.4f} (single-device "
+                     f"{refs['e']['ppl']:.4f})")
+    print(header("e", "CP, Llama-3.2-1B, one 2048-token window in 2 shards, at 16 layers and "
+                      "at 1; perplexity_from_tokens over 4,096 tokens (5 windows)")
+          + f"; logits against the single-device forward with plain attention, mean NLL tol "
+          f"{PARALLEL_NLL_TOL}: " + "; ".join(lines),
+          flush=True)
+    # (f)
+    lines = []
+    want = refs["f"]
+    check(not torch.equal(want["sampled"][0], want["sampled"][16]),
+          "(f) single-device: rows 0 and 16 sampled one stream")
+    for r, res in enumerate(ranks):
+        out = res["f"]["out"]
+        check(torch.equal(out["logits"], want["logits"]),
+              f"(f) rank {r}: prefill logits not bit-equal to single-device")
+        check(torch.equal(out["tokens"].long(), want["tokens"].long()),
+              f"(f) rank {r}: greedy tokens differ from single-device")
+        check(torch.equal(out["sampled"], want["sampled"]),
+              f"(f) rank {r}: sampled tokens differ from single-device")
+        lines.append(f"rank {r} prefill logits bit-equal, 32/32 greedy and sampled streams equal")
+    print(header("f", "DP, the main path (Gemma-3-270M W4 + int8 head, int8 KV) on (data 2, "
+                      "model 1): 16 rows a rank, 16 greedy steps, then 16 sampled at "
+                      "temperature 1 (rows 0 and 16 one prompt, two streams)")
+          + "; torch.equal: " + "; ".join(lines), flush=True)
+
+    launches = {}
+    for res in ranks:
+        for leg in "abcdef":
+            for key, n in res[leg]["launches"].items():
+                launches[key] = launches.get(key, 0) + n
+    for key in ("w4", "w8", "flash_decode", "flash_attention"):
+        check(launches.get(key, 0) > 0, f"phase 12's ranks launched no {key} kernel")
+    print(f"phase 12 parallel on {card}: {time.perf_counter() - t0:.1f} s (references "
+          f"{t_refs:.1f} s, the world {world_s:.1f} s with the spawn and both CUDA contexts); "
+          f"the ranks' launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4299,6 +5081,12 @@ def main() -> int:
     for key, n in run_families(model, qparams, card).items():
         launches[key] += n
     phase_done("11 model families and ways in")
+
+    # Phase 12: tensor, expert, pipeline, context and data parallelism on a
+    # world of two ranks sharing the card (gloo), after phase 2's build.
+    for key, n in run_parallel(model, qparams, card).items():
+        launches[key] += n
+    phase_done("12 parallel")
 
     # name in the kernels line, CUDA source, replaced TPU kernel.
     sources = {

@@ -1,6 +1,7 @@
-"""Inference engine: prefill and decode over a static KV cache, one device.
+"""Inference engine: prefill and decode over a static KV cache, on one device
+or on a (data, model) mesh of ranks.
 
-Counterpart of the single-device part of ``onnx_quantize_tpu/engine/engine.py``.
+Counterpart of ``onnx_quantize_tpu/engine/engine.py``.
 Ragged batches use per-sequence lengths: pad-token K/V rows land in slots that
 a sentinel in ``kv_positions`` keeps masked until a real token overwrites
 them. Where the JAX package compiles prefill and a ``lax.scan`` decode loop,
@@ -22,6 +23,21 @@ the flash-decode kernel; with ``mlp_megakernel=True`` every decode-sized MLP
 over packed W4 weights runs the fused MLP kernel. ``score_nll``/``score_ppl``
 score token rows teacher-forced through the decode path, so the cache's
 quantization error is part of the result.
+
+With ``mesh`` (``parallel.mesh.Mesh``, axes (data, model)), every rank builds
+the engine from the same global param tree: the model's ``tp_localize`` gives
+the per-rank model, ``parallel.tp`` localizes the tree and takes the rank's
+slice, and only then are the slice's kernel scales baked. The rank's
+single-device engine (``local``) runs the Megatron schedule on its weight
+shard, with the batch rows of its data coordinate; the public methods take
+global inputs, run the local engine and all-gather their outputs over the
+data axis, so every rank returns what one device would. A data rank's
+sampled tokens draw the noise of the whole batch and keep its rows
+(``sampling.gumbel_argmax``'s window), so every row gets its own noise, as
+on one device, from a generator seeded alike on every rank. The cache a mesh
+engine hands out is the rank's shard: its rows and its local KV heads. What
+the JAX package refuses on a mesh, this one refuses the same way: prefix
+caching, narrow admission and the ``score_nll``/``score_ppl`` scan.
 """
 
 from __future__ import annotations
@@ -82,7 +98,13 @@ class InferenceEngine:
 
     def __init__(self, model, params: dict, max_batch: int = 8, max_seq: int = 2048,
                  kv_quant: bool | str = False, dtype: torch.dtype = torch.float32,
-                 fused_attention: bool | str = "auto", mlp_megakernel: bool | str = "auto"):
+                 fused_attention: bool | str = "auto", mlp_megakernel: bool | str = "auto",
+                 mesh=None, data_axis: str = "data", model_axis: str = "model"):
+        self.mesh = mesh
+        if mesh is not None:
+            self._init_mesh(model, params, max_batch, max_seq, kv_quant, dtype,
+                            fused_attention, mlp_megakernel, data_axis, model_axis)
+            return
         cfg = model.cfg
         # kv_quant: False | True/"int8" | "int4" (packed nibbles, half the
         # cache bytes again; see kv_cache.py).
@@ -119,6 +141,8 @@ class InferenceEngine:
         # reference; the engine sets it before each of its forwards, so two
         # engines over one model keep their own settings.
         self._mega = mlp_megakernel != "auto" and bool(mlp_megakernel)
+        # A mesh engine's local engine draws its rows of the global noise.
+        self._noise_window = None
         self.model = model
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -131,7 +155,53 @@ class InferenceEngine:
             bits=kv_bits, dtype=dtype,
         )
 
+    def _init_mesh(self, model, params, max_batch, max_seq, kv_quant, dtype, fused_attention,
+                   mlp_megakernel, data_axis, model_axis):
+        from onnx_quantize_tpu_torch.parallel.tp import (
+            build_param_specs,
+            localize_params,
+            shard_params_local,
+        )
+
+        mesh = self.mesh
+        self._data_axis, self._model_axis = data_axis, model_axis
+        tp, dp = mesh.shape[model_axis], mesh.shape[data_axis]
+        if max_batch % dp != 0:
+            raise ValueError(f"max_batch={max_batch} not divisible by data={dp}")
+        local_model, rules = model.tp_localize(tp, axis=model_axis)
+        params = localize_params(params, rules, tp)
+        mine = shard_params_local(params, build_param_specs(params, rules, axis=model_axis),
+                                  mesh)
+        # The local engine bakes the slice's kernel scales.
+        self.local = InferenceEngine(local_model, mine, max_batch // dp, max_seq, kv_quant,
+                                     dtype, fused_attention, mlp_megakernel)
+        self.model = model
+        self.max_batch, self.max_seq, self.dtype = max_batch, max_seq, dtype
+        self.params, self.device = self.local.params, self.local.device
+        self.cache_cfg = self.local.cache_cfg
+        lb = self.local.max_batch
+        self._rows = slice(mesh.coords[data_axis] * lb, (mesh.coords[data_axis] + 1) * lb)
+        self.local._noise_window = (self._rows, max_batch)
+
+    def _mine(self, a):
+        """This rank's batch rows of a per-slot host array or tensor (None stays)."""
+        return None if a is None else a[self._rows]
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``t``, in batch order."""
+        from onnx_quantize_tpu_torch.parallel.comm import all_gather
+
+        return all_gather(t, self._data_axis, dim=0)
+
+    def _on_mesh(self):
+        from onnx_quantize_tpu_torch.parallel.mesh import use_mesh
+
+        return use_mesh(self.mesh)
+
     def new_cache(self) -> dict:
+        """An empty cache (on a mesh: this rank's rows and local KV heads)."""
+        if self.mesh is not None:
+            return self.local.new_cache()
         return init_cache(self.cache_cfg, self.device)
 
     def _tensor(self, a, dtype) -> torch.Tensor:
@@ -187,7 +257,7 @@ class InferenceEngine:
         idx = (last_lengths - 1).clamp(0, hidden.shape[1] - 1).long()[:, None, None].expand(
             -1, 1, hidden.shape[-1])
         h_last = torch.gather(hidden, 1, idx)  # (B, 1, H)
-        return model.lm_head(params["lm_head"], h_last)
+        return model.logits(params, h_last)
 
     @contextlib.contextmanager
     def _without_auto_ragged(self):
@@ -235,6 +305,15 @@ class InferenceEngine:
         totals (P + suffix): the prefix rows go into rows [0, P) of the
         selected slots only, and only the suffix runs, at positions P..P+T-1.
         """
+        if self.mesh is not None:
+            if prefix is not None:
+                raise NotImplementedError(
+                    "prefix caching is single-chip for now (shard the prefix "
+                    "rows with the cache specs to extend it)")
+            with self._on_mesh():
+                out = self.local.prefill(cache, self._mine(ids), self._mine(lengths),
+                                         self._mine(slot_mask), with_tokens)
+                return (cache, *(self._gathered(t) for t in out[1:]))
         ids = self._token_ids(ids)
         B, T = ids.shape
         P = 0 if prefix is None else prefix["k"].shape[1]
@@ -277,6 +356,8 @@ class InferenceEngine:
         """Rows [0, length) of slot ``row`` as a reusable KV prefix: (L, length,
         H, D) K/V (and (L, length, H) scales), copies on the device, for
         :meth:`prefill`'s ``prefix``."""
+        if self.mesh is not None:
+            raise NotImplementedError("prefix caching is single-chip for now")
         keys = ["k", "v"] + (["k_scale", "v_scale"] if self.cache_cfg.quantized else [])
         return {key: cache[key][:, row, :length].clone() for key in keys}
 
@@ -321,6 +402,10 @@ class InferenceEngine:
 
     def decode(self, cache: dict, tokens, active=None):
         """One decode step for every active slot; returns (cache, logits (B, V))."""
+        if self.mesh is not None:
+            with self._on_mesh():
+                _, logits = self.local.decode(cache, self._mine(tokens), self._mine(active))
+                return cache, self._gathered(logits)
         tokens = self._token_ids(tokens)
         active = (torch.ones(tokens.shape, dtype=torch.bool, device=self.device)
                   if active is None else self._tensor(active, torch.bool))
@@ -337,6 +422,12 @@ class InferenceEngine:
         KV writes, no length advance; its output is padded with EOS).
         Returns (cache, generated (B, steps) int32 on the device).
         """
+        if self.mesh is not None:
+            with self._on_mesh():
+                _, gen = self.local.decode_multi(cache, self._mine(tokens), steps,
+                                                 self._mine(active), sampling, generator,
+                                                 eos_token_id)
+                return cache, self._gathered(gen)
         toks = self._token_ids(tokens)
         active = (torch.ones(toks.shape, dtype=torch.bool, device=self.device)
                   if active is None else self._tensor(active, torch.bool))
@@ -348,7 +439,7 @@ class InferenceEngine:
             if sampling is None or sampling.temperature <= 0:
                 nxt = torch.argmax(logits, dim=-1)
             else:
-                nxt = sample(logits, generator, sampling).to(torch.int64)
+                nxt = sample(logits, generator, sampling, self._noise_window).to(torch.int64)
             if eos_token_id is not None:
                 nxt = torch.where(done, eos_token_id, nxt)
                 done = done | (act & (nxt == eos_token_id))
@@ -399,6 +490,10 @@ class InferenceEngine:
         (``kv_quant``) at every position. Rows go in ``max_batch`` chunks.
         Returns (nll_sum (N,) float32, count (N,) int32) numpy arrays.
         """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "score_nll is single-chip (shard the score scan with the "
+                "decode specs to extend it)")
         ids = np.asarray(ids, np.int32)
         if ids.ndim == 1:
             ids = ids[None]
@@ -458,6 +553,21 @@ class InferenceEngine:
         done, lengths]`` (``emitted`` counts the valid leading ``out``
         tokens), carry = (tokens, done, budgets) after the round.
         """
+        if self.mesh is not None:
+            if admit_ids is not None and admit_slots is not None:
+                raise NotImplementedError(
+                    "narrow admission is single-chip; mesh engines use "
+                    "the full masked admission")
+            mine = self._mine
+            with self._on_mesh():
+                _, blob, carry = self.local.serve_chunk(
+                    cache, mine(tokens), steps, eos=mine(eos),
+                    sampling_arrays=tuple(mine(a) for a in sampling_arrays), variant=variant,
+                    generator=generator, active=mine(active), budgets=mine(budgets),
+                    carry=None if carry is None else tuple(mine(c) for c in carry),
+                    admit_ids=mine(admit_ids), admit_lengths=mine(admit_lengths),
+                    admit_mask=mine(admit_mask), admit_budgets=mine(admit_budgets))
+                return cache, self._gathered(blob), tuple(self._gathered(c) for c in carry)
         need_temp, need_topk, need_topp = variant
         temps, top_ks, top_ps = sampling_arrays
         temps = self._tensor(temps, torch.float32)
@@ -466,7 +576,8 @@ class InferenceEngine:
 
         def samp(logits):
             return sample_batch(logits, generator, temps, top_ks, top_ps, need_temp=need_temp,
-                                need_topk=need_topk, need_topp=need_topp)
+                                need_topk=need_topk, need_topp=need_topp,
+                                window=self._noise_window)
 
         if carry is not None:
             toks, done, budgets = carry

@@ -6,7 +6,12 @@ path's sampler: per-row parameter tensors, so requests with different
 settings sample in one round. Logits are cast to float32 first, so a bf16
 stream never changes the argmax or the top-p cutoff. Random draws come from a
 ``torch.Generator``; they differ from JAX's random streams, so only the
-greedy path and the masks are held to the JAX package.
+greedy path and the masks are held to the JAX package. Every draw is
+Gumbel-max, one uniform per position of the (B, V) matrix, as JAX's
+``categorical``: a row's noise depends on its position in the batch only. A
+``window`` (rows, batch) draws the noise of the whole (batch, V) matrix and
+keeps ``rows``, so a data rank of a mesh engine samples its rows as one
+device samples them in the whole batch.
 """
 
 from __future__ import annotations
@@ -27,13 +32,12 @@ class SamplingParams:
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator | None,
-           params: SamplingParams) -> torch.Tensor:
+           params: SamplingParams, window: tuple[slice, int] | None = None) -> torch.Tensor:
     """Next tokens (B,) int32 from (B, V) logits."""
     logits = logits.to(torch.float32)
     if params.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    probs = torch.softmax(_masked_logits(logits, params), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    return gumbel_argmax(_masked_logits(logits, params), generator, window).to(torch.int32)
 
 
 def _masked_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor:
@@ -81,7 +85,8 @@ def batch_sampling_arrays(params_list: list[SamplingParams]):
 def sample_batch(logits: torch.Tensor, generator: torch.Generator | None,
                  temps: torch.Tensor, top_ks: torch.Tensor, top_ps: torch.Tensor, *,
                  need_temp: bool = True, need_topk: bool = True,
-                 need_topp: bool = True) -> torch.Tensor:
+                 need_topp: bool = True,
+                 window: tuple[slice, int] | None = None) -> torch.Tensor:
     """Per-row sampling from (B, V) logits; returns (B,) int64 on the device.
 
     ``temps`` (B,) float32 (<= 0: a greedy row), ``top_ks`` (B,) int32 (0:
@@ -97,13 +102,21 @@ def sample_batch(logits: torch.Tensor, generator: torch.Generator | None,
     if not need_temp:
         return greedy
     x = _masked_rows(logits, temps, top_ks, top_ps, need_topk, need_topp)
-    return torch.where(temps <= 0.0, greedy, gumbel_argmax(x, generator))
+    return torch.where(temps <= 0.0, greedy, gumbel_argmax(x, generator, window))
 
 
-def gumbel_argmax(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+def gumbel_argmax(x: torch.Tensor, generator: torch.Generator | None,
+                  window: tuple[slice, int] | None = None) -> torch.Tensor:
     """One categorical draw per row of float32 (B, V) logits: Gumbel-max,
-    one uniform per position from ``generator``; (B,) int64."""
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    one uniform per position from ``generator``; (B,) int64. With ``window``
+    = (rows, batch), ``x`` holds ``rows`` of a (batch, V) matrix: the whole
+    matrix's uniforms are drawn and the rows' kept."""
+    if window is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    else:
+        rows, batch = window
+        u = torch.rand((batch, x.shape[-1]), generator=generator, device=x.device,
+                       dtype=torch.float32)[rows]
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     return torch.argmax(x + gumbel, dim=-1)
 

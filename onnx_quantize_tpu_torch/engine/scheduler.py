@@ -83,7 +83,8 @@ class ContinuousBatchingScheduler:
         self.pipeline = pipeline
         # Narrow admission (serve mode): groups of at most max_batch / 2
         # forward only their rows, at (A, T_pad), instead of the whole batch.
-        # The same tokens, less admission compute.
+        # The same tokens, less admission compute. Mesh engines always admit
+        # masked, as the JAX package's.
         self.narrow_admit = True
         self.cache = engine.new_cache()
         self.queue: deque[Request] = deque()
@@ -279,7 +280,9 @@ class ContinuousBatchingScheduler:
 
     def _admit_kwargs(self, admitted, with_budgets: bool) -> dict:
         """serve_chunk's admission arguments (narrow or masked)."""
-        if self.narrow_admit and len(admitted) <= self.engine.max_batch // 2:
+        if (self.narrow_admit
+                and self.engine.mesh is None  # mesh engines: full admission
+                and len(admitted) <= self.engine.max_batch // 2):
             ids, lengths, slots = self._build_admit_narrow(admitted)
             kw = dict(admit_ids=ids, admit_lengths=lengths, admit_slots=slots)
         else:

@@ -115,6 +115,8 @@ class SpeculativeDecoder:
                 "target and draft engines must share max_batch/max_seq "
                 f"(got {target.max_batch}/{target.max_seq} vs "
                 f"{draft.max_batch}/{draft.max_seq})")
+        if target.mesh is not None or draft.mesh is not None:
+            raise NotImplementedError("speculative decoding is single-chip for now")
         if k < 2:
             raise ValueError(f"k must be >= 2 (the acceptance cap is k - 1), got {k}")
         if target.device != draft.device:

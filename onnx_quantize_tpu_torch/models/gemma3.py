@@ -27,14 +27,21 @@ per head after RoPE (so the K cache holds rotated rows) and
 matmuls, as the reference computes them outside any Pallas kernel. A forward
 given a ``Context`` records the calibration taps of the unfused sites.
 With ``num_experts > 0`` each block's MLP is a :class:`Gemma3MoEMLP`
-(``models/moe.py`` holds the MoE configs and the engine layouts). Tensor,
-context and expert parallelism are not ported yet (ROADMAP.md, Queue A item
-14).
+(``models/moe.py`` holds the MoE configs and the engine layouts).
+
+Parallelism hooks (``parallel/``): :meth:`Gemma3.tp_localize` returns a
+per-rank model whose markers run the collectives of tensor and expert
+parallelism (``Linear.tp_reduce``, ``Embedding.tp_vocab_axis``, the logits
+all-gather, the GQA replicate-slice of K/V, ``Gemma3MoEMLP.ep_axis``), and
+``Gemma3Attention.cp_spec`` (``parallel/cp.py``) runs a full-sequence
+attention over sequence-split K/V blocks. The markers name mesh axes; the
+collectives run over the mesh made current by ``parallel.mesh.use_mesh``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 
 import numpy as np
@@ -49,9 +56,11 @@ from onnx_quantize_tpu_torch.ops.kernels import flash_attention, flash_decode, m
 from onnx_quantize_tpu_torch.ops.reference import dequantize_weight
 from onnx_quantize_tpu_torch.utils import copy_tree
 
+logger = logging.getLogger(__name__)
+
 __all__ = ["Gemma3Config", "Gemma3", "Gemma3MoEMLP", "GEMMA3_270M", "GEMMA3_1B", "GEMMA3_4B",
-           "make_attention_mask", "fuse_gemma3_projections", "glu_activation",
-           "stacked_expert_mlp"]
+           "make_attention_mask", "make_attention_valid", "fuse_gemma3_projections",
+           "glu_activation", "stacked_expert_mlp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +204,16 @@ class Gemma3Attention(Module):
         # cache write. Scores are unchanged ((qR)(kR)^T = qk^T); the cached K
         # rows are rotated.
         self.qk_rot: np.ndarray | None = None
+        # Tensor-parallel replicate-slice markers (set by tp_localize when
+        # 1 < num_kv_heads < tp): the K/V projections stay whole and produce
+        # ``kv_proj_heads`` heads; each rank keeps the one KV head its query
+        # shard attends to (head = axis index // dup).
+        self.kv_proj_heads: int | None = None  # None: cfg.num_kv_heads
+        self.kv_slice: tuple[str, int] | None = None  # (axis name, dup)
+        # Context-parallel marker (parallel/cp.py): (axis name, axis size,
+        # "ring" | "gather"); without a cache, attention runs over K/V blocks
+        # split along the sequence over that axis.
+        self.cp_spec: tuple[str, int, str] | None = None
 
     def _flash_ok(self, use_flash, x: torch.Tensor) -> bool:
         if use_flash is False:
@@ -210,19 +229,31 @@ class Gemma3Attention(Module):
     def _qkv(self, params, x, positions, ctx=None):
         cfg = self.cfg
         B, T, _ = x.shape
+        # Under replicate-slice TP the K/V projections emit every global KV
+        # head; attention and the cache use cfg.num_kv_heads local ones.
+        kv_proj_heads = self.kv_proj_heads or cfg.num_kv_heads
         if "_fused_qkv" in params:
             # Engine-load horizontal fusion (nn/fuse.py): one matmul.
             qkv = apply_linear(params["_fused_qkv"], x)
             n_q = cfg.num_heads * cfg.head_dim
-            n_k = cfg.num_kv_heads * cfg.head_dim
+            n_k = kv_proj_heads * cfg.head_dim
             q, k, v = qkv[..., :n_q], qkv[..., n_q:n_q + n_k], qkv[..., n_q + n_k:]
         else:
             q = self.q_proj(params["q_proj"], x, ctx=ctx)
             k = self.k_proj(params["k_proj"], x, ctx=ctx)
             v = self.v_proj(params["v_proj"], x, ctx=ctx)
         q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+        k = k.reshape(B, T, kv_proj_heads, cfg.head_dim)
+        v = v.reshape(B, T, kv_proj_heads, cfg.head_dim)
+        if self.kv_slice is not None and kv_proj_heads != cfg.num_kv_heads:
+            # GQA replicate-slice: this rank's query heads all attend to one
+            # global KV head (contiguous query split keeps a group on a rank).
+            from onnx_quantize_tpu_torch.parallel.comm import axis_index
+
+            axis, dup = self.kv_slice
+            head = axis_index(axis) // dup
+            k = k[:, :, head:head + cfg.num_kv_heads]
+            v = v[:, :, head:head + cfg.num_kv_heads]
         if cfg.use_qk_norm:
             q = self.q_norm(params["q_norm"], q)
             k = self.k_norm(params["k_norm"], k)
@@ -248,6 +279,22 @@ class Gemma3Attention(Module):
         B, T, _ = x.shape
         window = None if self.is_global else cfg.sliding_window
         q, k, v = self._qkv(params, x, positions, ctx)
+        if self.cp_spec is not None and kv_write is None:
+            # Context-parallel scoring: K/V blocks split along the sequence
+            # over the axis; the attend rebuilds the causal/window visibility
+            # from the global ``positions`` of each block it holds.
+            if mask is not None:
+                logger.warning(
+                    "Gemma3Attention: the context-parallel attend ignores the supplied "
+                    "mask and rebuilds the causal/sliding-window mask per block; custom "
+                    "(e.g. padding) masks are not applied under CP.")
+            from onnx_quantize_tpu_torch.parallel.cp import cp_attend
+
+            axis, size, mode = self.cp_spec
+            out = cp_attend(q, k, v, positions, cfg=cfg, is_global=self.is_global, axis=axis,
+                            size=size, mode=mode)
+            out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
+            return self.o_proj(params["o_proj"], out.to(x.dtype), ctx=ctx)
         if kv_write is not None:
             kv = kv_write(self.layer_idx, k, v)
             if isinstance(kv, QuantizedKV) and kv.use_kernel:
@@ -290,10 +337,12 @@ class Gemma3MLP(Module):
             w = params["_fused_gate_up"]["w"]
             dn = params["down_proj"].get("w")
             # The fused kernel computes GeGLU only and has no hook for
-            # down_proj's input prescale or the online R4 rotation.
+            # down_proj's input prescale, the online R4 rotation or the
+            # row-parallel all-reduce.
             if (self.use_megakernel and self.activation == "gelu_tanh"
                     and isinstance(w, QTensor) and isinstance(dn, QTensor)
-                    and "prescale" not in params["down_proj"] and self.down_rot is None):
+                    and "prescale" not in params["down_proj"] and self.down_rot is None
+                    and self.down_proj.tp_reduce is None):
                 M = int(np.prod(x.shape[:-1]))
                 if mlp_w4.mlp_w4_eligible(w, dn, M):
                     return mlp_w4.mlp_w4_fused(x, w, dn).to(x.dtype)
@@ -414,6 +463,11 @@ class Gemma3MoEMLP(Module):
             self.shared_gate = Linear(d, 1, use_bias=False, dtype=dt)
         self.use_ragged_prefill: bool | str = "auto"
         self.host_fetches = 0
+        # Expert-parallel marker (set by tp_localize): the stacked experts'
+        # leading axis (or the fused layout's columns) is split over this mesh
+        # axis; local expert e is global expert axis index * local + e, and
+        # one all-reduce sums the combine. The ragged path is off under it.
+        self.ep_axis: str | None = None
 
     @staticmethod
     def _ragged_compatible(layout: dict) -> bool:
@@ -431,7 +485,8 @@ class Gemma3MoEMLP(Module):
                    fused_source: bool = False) -> bool:
         """Whether a forward over input of ``shape`` (B, T, d) takes the ragged path."""
         mode = self.use_ragged_prefill
-        if mode is False or layout is None or not self._ragged_compatible(layout):
+        if (mode is False or layout is None or self.ep_axis is not None
+                or not self._ragged_compatible(layout)):
             return False
         if mode is True:
             return True
@@ -519,12 +574,28 @@ class Gemma3MoEMLP(Module):
         zeros = top_p.new_zeros((*top_p.shape[:-1], num_experts))
         return zeros.scatter(-1, top_i, top_p)
 
+    def _local_experts(self, n_local: int, combine: torch.Tensor) -> torch.Tensor:
+        """The combine weights of this rank's experts (all of them without EP)."""
+        if self.ep_axis is None:
+            return combine
+        from onnx_quantize_tpu_torch.parallel.comm import axis_index
+
+        base = axis_index(self.ep_axis) * n_local
+        return combine[..., base:base + n_local]
+
     def _experts_fused(self, fused: dict, x, combine) -> torch.Tensor:
-        gu = apply_linear(fused["gate_up"], x)  # (..., E * 2I)
+        """Under EP the two sites are the Megatron column/row pair and the
+        all-reduce is the combine across ranks."""
+        gu = apply_linear(fused["gate_up"], x)  # (..., E_local * 2I)
         gu = gu.reshape(*gu.shape[:-1], -1, 2 * self.inter)
         act = glu_activation(gu[..., :self.inter], gu[..., self.inter:], self.activation)
-        act = act * combine[..., None].to(act.dtype)
-        return apply_linear(fused["down"], act.reshape(*x.shape[:-1], -1)).to(x.dtype)
+        act = act * self._local_experts(gu.shape[-2], combine)[..., None].to(act.dtype)
+        out = apply_linear(fused["down"], act.reshape(*x.shape[:-1], -1))
+        if self.ep_axis is not None:
+            from onnx_quantize_tpu_torch.parallel.comm import all_reduce
+
+            out = all_reduce(out.to(torch.float32), self.ep_axis)
+        return out.to(x.dtype)
 
     def forward(self, params, x, ctx=None):
         cfg = self.cfg
@@ -543,7 +614,11 @@ class Gemma3MoEMLP(Module):
             return self._shared_out(params, x, self._experts_fused(fused, x, combine), ctx)
         out = torch.zeros((*x.shape[:-1], cfg.hidden_size), dtype=torch.float32,
                           device=x.device)
-        for e in range(cfg.num_experts):
+        if stacked is not None:
+            down = stacked["down"]["w"]
+            n_local = (down.data if isinstance(down, QTensor) else down).shape[0]
+            combine = self._local_experts(n_local, combine)
+        for e in range(combine.shape[-1]):
             w_e = combine[..., e]
             xe = x * (w_e > 0).to(x.dtype)[..., None]
             if stacked is not None:
@@ -551,6 +626,10 @@ class Gemma3MoEMLP(Module):
             else:
                 ye = self.experts[e](params[f"experts.{e}"], xe, ctx=ctx)
             out = out + ye.to(torch.float32) * w_e[..., None]
+        if stacked is not None and self.ep_axis is not None:
+            from onnx_quantize_tpu_torch.parallel.comm import all_reduce
+
+            out = all_reduce(out, self.ep_axis)
         return self._shared_out(params, x, out.to(x.dtype), ctx)
 
     def _shared_out(self, params, x, out, ctx):
@@ -590,14 +669,21 @@ class Gemma3Block(Module):
         return x + h
 
 
-def make_attention_mask(cfg: Gemma3Config, positions, kv_positions, is_global: bool):
-    """Additive mask (B, 1, T, S): 0 where visible (causal, plus the sliding
-    window on local layers), -1e30 where masked."""
+def make_attention_valid(cfg: Gemma3Config, positions, kv_positions, is_global: bool):
+    """Boolean visibility (B, 1, T, S): causal, plus the sliding window on
+    local layers. The one source of both the additive mask and the block skip
+    of the context-parallel ring (parallel/cp.py)."""
     valid = kv_positions[:, None, :] <= positions[:, :, None]
     if not is_global:
         valid &= kv_positions[:, None, :] > positions[:, :, None] - cfg.sliding_window
+    return valid[:, None, :, :]
+
+
+def make_attention_mask(cfg: Gemma3Config, positions, kv_positions, is_global: bool):
+    """Additive mask (B, 1, T, S): 0 where visible, -1e30 where masked."""
+    valid = make_attention_valid(cfg, positions, kv_positions, is_global)
     zero = torch.zeros((), dtype=torch.float32, device=positions.device)
-    return torch.where(valid, zero, -1e30)[:, None, :, :]
+    return torch.where(valid, zero, -1e30)
 
 
 def fuse_gemma3_projections(params: dict) -> dict:
@@ -646,6 +732,9 @@ class Gemma3(Module):
         # Attention for the full-sequence (no-cache) path: "auto" (the
         # flash-attention kernel on CUDA at T >= 512), True, or False.
         self.use_flash: bool | str = "auto"
+        # Tensor-parallel marker (set by tp_localize): all-gather the
+        # vocab-split logits over this mesh axis at the very end.
+        self._tp_gather_logits: str | None = None
         self.input_specs = [InputSpec("input_ids", (8,), np.int32)]
         self.finalize()
 
@@ -669,8 +758,13 @@ class Gemma3(Module):
         if cfg.scale_embeddings:
             x = x * math.sqrt(cfg.hidden_size)
         x = x.to(cfg.torch_dtype)
-        mask_local = make_attention_mask(cfg, positions, kv_positions, is_global=False)
-        mask_global = make_attention_mask(cfg, positions, kv_positions, is_global=True)
+        # Under context parallelism each block of the ring builds its own
+        # visibility from the global positions: no mask here.
+        if kv_write is None and len(self.layers) and self.layers[0].attn.cp_spec is not None:
+            mask_local = mask_global = None
+        else:
+            mask_local = make_attention_mask(cfg, positions, kv_positions, is_global=False)
+            mask_global = make_attention_mask(cfg, positions, kv_positions, is_global=True)
         for i, block in enumerate(self.layers):
             mask = mask_global if cfg.is_global_layer(i) else mask_local
             x = block(params[f"layers.{i}"], x, positions, mask, kv_write=kv_write,
@@ -681,4 +775,101 @@ class Gemma3(Module):
                 ctx=None):
         x = self.hidden_states(params, input_ids, positions=positions, kv_write=kv_write,
                                kv_positions=kv_positions, ctx=ctx)
-        return self.lm_head(params["lm_head"], x, ctx=ctx)
+        return self.logits(params, x, ctx=ctx)
+
+    def logits(self, params, hidden, ctx=None):
+        """The lm_head over final hidden states; under TP, the vocab-split
+        logits all-gathered (the only gather of the TP forward)."""
+        logits = self.lm_head(params["lm_head"], hidden, ctx=ctx)
+        if self._tp_gather_logits is not None:
+            from onnx_quantize_tpu_torch.parallel.comm import all_gather
+
+            logits = all_gather(logits, self._tp_gather_logits, dim=logits.ndim - 1)
+        return logits
+
+    def tp_localize(self, tp: int, axis: str = "model"):
+        """Per-rank model and sharding rules for whole-model TP.
+
+        Returns ``(local_model, rules)``: the local model has
+        ``num_heads / tp`` query heads; KV heads split when ``num_kv_heads %
+        tp == 0``, replicate and slice (each rank keeps the KV head its query
+        shard attends to) when ``1 < num_kv_heads < tp`` and ``tp %
+        num_kv_heads == 0``, and replicate for MQA; row-parallel all-reduce
+        markers on o_proj/down_proj (MoE: expert parallelism over the same
+        axis, the shared expert as a Megatron pair), a vocab-split embedding
+        and the logits all-gather. Run it on params localized by
+        ``parallel.tp.localize_params`` and sliced by the rules' specs.
+        """
+        cfg = self.cfg
+        if tp == 1:
+            return self, [(r".*", "replicate")]
+        if cfg.num_heads % tp != 0:
+            raise ValueError(f"num_heads={cfg.num_heads} not divisible by tp={tp}")
+        kv_sharded = cfg.num_kv_heads % tp == 0
+        kv_sliced = not kv_sharded and cfg.num_kv_heads > 1 and tp % cfg.num_kv_heads == 0
+        if not kv_sharded and not kv_sliced and cfg.num_kv_heads != 1:
+            raise ValueError(
+                f"num_kv_heads={cfg.num_kv_heads} must divide tp, be divisible "
+                f"by tp, or equal 1 (got tp={tp}: GQA groups would straddle "
+                "device boundaries)")
+        local_kv = (cfg.num_kv_heads // tp if kv_sharded
+                    else 1 if kv_sliced else cfg.num_kv_heads)
+        local = Gemma3(dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                                           num_kv_heads=local_kv))
+        moe = cfg.num_experts > 0
+        if moe and cfg.num_experts % tp != 0:
+            raise ValueError(f"num_experts={cfg.num_experts} not divisible by tp={tp}")
+        for block in local.layers:
+            block.attn.o_proj.tp_reduce = axis
+            if moe:
+                block.mlp.ep_axis = axis
+                if cfg.shared_expert_size:
+                    block.mlp.shared.down_proj.tp_reduce = axis
+            else:
+                block.mlp.down_proj.tp_reduce = axis
+            if kv_sliced:
+                block.attn.kv_proj_heads = cfg.num_kv_heads
+                block.attn.kv_slice = (axis, tp // cfg.num_kv_heads)
+        local.embed.tp_vocab_axis = axis
+        local._tp_gather_logits = axis
+        kv_kind = "column" if kv_sharded else "replicate"
+        # Fused kinds carry their segments so localize_params can permute the
+        # columns into per-rank [q_i|k_i|v_i] chunks.
+        n_q = cfg.num_heads * cfg.head_dim
+        n_kv = cfg.num_kv_heads * cfg.head_dim
+        qkv_fused = ("fused_column", ((n_q, "column"), (n_kv, kv_kind), (n_kv, kv_kind)))
+        rules = [
+            (r"\.attn\._fused_qkv$", qkv_fused),
+            (r"\.attn\.q_proj$", "column"),
+            (r"\.attn\.(k_proj|v_proj)$", kv_kind),
+            (r"\.attn\.o_proj$", "row"),
+            (r"^lm_head$", "column"),
+            (r"^embed$", "vocab"),
+        ]
+        if moe:
+            shared = cfg.shared_expert_size
+            rules += [
+                # The concatenated experts (fuse_moe_experts) are the Megatron
+                # pair: gate_up split along N in whole experts, down along K.
+                (r"\.mlp\._fused_experts\.gate_up$", "column"),
+                (r"\.mlp\._fused_experts\.down$", "row"),
+                # Stacked experts split their leading axis; the router, the
+                # shared gate and unstacked experts replicate.
+                (r"\.mlp\._stacked_experts", "expert"),
+                (r"\.mlp\.router$", "replicate"),
+                (r"\.mlp\.shared_gate$", "replicate"),
+                (r"\.mlp\.shared\._fused_gate_up$",
+                 ("fused_column", ((shared, "column"), (shared, "column")))),
+                (r"\.mlp\.shared\.(gate_proj|up_proj)$", "column"),
+                (r"\.mlp\.shared\.down_proj$", "row"),
+                (r"\.mlp\.experts\.", "replicate"),
+            ]
+        else:
+            inter = cfg.intermediate_size
+            rules += [
+                (r"\.mlp\._fused_gate_up$", ("fused_column", ((inter, "column"),
+                                                               (inter, "column")))),
+                (r"\.mlp\.(gate_proj|up_proj)$", "column"),
+                (r"\.mlp\.down_proj$", "row"),
+            ]
+        return local, rules

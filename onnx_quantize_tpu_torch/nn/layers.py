@@ -1,6 +1,6 @@
 """Layers that are not quantizable sites: embedding, RMSNorm, rotary.
 
-Counterpart of ``onnx_quantize_tpu/nn/layers.py`` (single-device part).
+Counterpart of ``onnx_quantize_tpu/nn/layers.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,10 @@ class Embedding(Module):
         self.vocab_size = vocab_size
         self.features = features
         self.dtype = dtype
+        # Tensor-parallel marker (set by ``tp_localize``): the table's vocab
+        # rows are split over this mesh axis; the lookup zeroes ids outside
+        # the local rows and sums the partial embeddings over the axis.
+        self.tp_vocab_axis: str | None = None
 
     def init(self, generator: torch.Generator) -> dict:
         w = torch.randn((self.vocab_size, self.features), generator=generator,
@@ -30,7 +34,17 @@ class Embedding(Module):
         return {"w": w.to(self.dtype)}
 
     def forward(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
-        return params["w"][ids]
+        w = params["w"]
+        if self.tp_vocab_axis is None:
+            return w[ids]
+        from onnx_quantize_tpu_torch.parallel.comm import all_reduce, axis_index
+
+        rows = w.shape[0]
+        local = ids - axis_index(self.tp_vocab_axis) * rows
+        valid = (local >= 0) & (local < rows)
+        emb = torch.where(valid[..., None], w[local.clamp(0, rows - 1)], 0)
+        # One rank holds each row, so the sum is exact; it runs in float32.
+        return all_reduce(emb.to(torch.float32), self.tp_vocab_axis).to(w.dtype)
 
 
 class RMSNorm(Module):

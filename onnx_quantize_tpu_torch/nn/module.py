@@ -116,6 +116,10 @@ class Linear(Module):
         self.out_features = out_features
         self.use_bias = use_bias
         self.dtype = dtype
+        # Row-parallel marker (set by ``tp_localize``): the name of the mesh
+        # axis whose ranks each hold a K shard; the local product is summed
+        # over it before the bias is added (the Megatron row-parallel site).
+        self.tp_reduce: str | None = None
 
     @property
     def op_type(self) -> str:
@@ -139,16 +143,18 @@ class Linear(Module):
         ))
 
     def forward(self, params: dict, x: torch.Tensor, ctx: Context | None = None) -> torch.Tensor:
-        return apply_linear(params, x, ctx, self.site_name)
+        return apply_linear(params, x, ctx, self.site_name, tp_reduce=self.tp_reduce)
 
 
 def apply_linear(params: dict, x: torch.Tensor, ctx: Context | None = None,
-                 name: str | None = None) -> torch.Tensor:
+                 name: str | None = None, tp_reduce: str | None = None) -> torch.Tensor:
     """Linear-site semantics on a site dict: the input ``prescale`` (the
     folded SmoothQuant/AWQ scale), float32 accumulation, then the result cast
     back to the stream dtype (a bf16 residual stream stays bf16 through every
-    site). With a ``ctx``, the calibration taps record the site's input after
-    the prescale, and its output, under ``name``."""
+    site). With ``tp_reduce`` (a mesh axis name) the float32 product is
+    summed over that axis's ranks before the bias is added. With a ``ctx``,
+    the calibration taps record the site's input after the prescale, and its
+    output, under ``name``."""
     from onnx_quantize_tpu_torch.ops import quantized_matmul
 
     # The stream dtype is read before the prescale multiply: a float32
@@ -161,7 +167,18 @@ def apply_linear(params: dict, x: torch.Tensor, ctx: Context | None = None,
         ctx.collect(name, "input", x)
     w = params["w"]
     b = params.get("b")
-    if isinstance(w, QTensor):
+    if tp_reduce is not None:
+        from onnx_quantize_tpu_torch.parallel.comm import all_reduce
+
+        if isinstance(w, QTensor):
+            y = quantized_matmul(x, w, None)
+        else:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            y = torch.matmul(x.to(dt), w.to(dt)).to(torch.float32)
+        y = all_reduce(y, tp_reduce)
+        if b is not None:
+            y = y + b
+    elif isinstance(w, QTensor):
         y = quantized_matmul(x, w, b)
     else:
         # Mixed dtypes promote, as in JAX: a pre-pass leaves a float32 weight

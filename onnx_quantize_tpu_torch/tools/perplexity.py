@@ -51,15 +51,26 @@ def load_wikitext_tokens(model_id: str | None = None, tokenizer=None) -> np.ndar
 
 @torch.inference_mode()
 def perplexity_from_tokens(model, params, input_ids, max_length: int = 2048,
-                           stride: int = 512, mesh=None) -> float:
+                           stride: int = 512, mesh=None, cp_mode: str = "ring") -> float:
     """Sliding-window perplexity of a causal LM over a token stream, on the
-    device that holds ``params``. ``mesh`` (context-parallel scoring) is not
-    ported yet."""
+    device that holds ``params``.
+
+    ``mesh``: a context-parallel mesh (``parallel.cp.make_cp_mesh``, its first
+    axis the sequence): every rank calls with the same stream, each window's
+    tokens are split over the ranks and scored with ring attention
+    (``cp_mode`` "ring") or gathered K/V ("gather"), zigzag where
+    ``max_length`` allows it; the windowing and NLL are unchanged, and every
+    rank returns the same perplexity."""
     if mesh is not None:
-        raise NotImplementedError(
-            "context-parallel scoring (mesh=) is not ported yet; see ROADMAP.md, "
-            "Queue A item 14"
-        )
+        from onnx_quantize_tpu_torch.parallel.cp import make_cp_forward
+
+        axis = mesh.axis_names[0]
+        shards = mesh.shape[axis]
+        layout = "zigzag" if max_length % (2 * shards) == 0 else "contiguous"
+        forward = make_cp_forward(model, mesh, max_length, axis=axis, mode=cp_mode,
+                                  layout=layout)
+    else:
+        forward = model
     device = params["embed"]["w"].device
     input_ids = np.asarray(input_ids)
     seq_len = len(input_ids)
@@ -75,7 +86,7 @@ def perplexity_from_tokens(model, params, input_ids, max_length: int = 2048,
         window = np.zeros((1, max_length), np.int64)
         window[0, :n] = input_ids[begin:end]
         ids = torch.from_numpy(window).to(device)
-        logits = model(params, ids)[0, : n - 1]
+        logits = forward(params, ids)[0, : n - 1]
         log_probs = torch.log_softmax(logits.to(torch.float32), dim=-1)
         targets = ids[0, 1:n]
         nll = -torch.gather(log_probs[-trg_len:], 1, targets[-trg_len:, None])[:, 0]

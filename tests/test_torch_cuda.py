@@ -1291,3 +1291,39 @@ def test_hf_bf16_checkpoint_loads_on_card_bit_equal(tmp_path):
     assert card["lm_head"]["w"].data_ptr() == card["embed"]["w"].data_ptr()
     ids = torch.tensor([[1, 2, 3, 4]], device="cuda")
     assert torch.isfinite(model(card, ids).float()).all()
+
+
+def test_tp_engine_world_on_card_matches_single_device(tmp_path):
+    """Two gloo ranks sharing the card (NCCL takes one rank a device), the
+    tiny W4 engine on a (data 1, model 2) mesh: each rank runs the W4 and W8
+    kernels on its shard, and the logits stay within 1e-4 of the largest
+    logit of the single-device engine on the card, greedy tokens equal."""
+    _require_cuda()
+    from onnx_quantize_tpu_torch.ops.kernels import kernel_library
+
+    from .torch_world import result, run_world
+
+    cfg = dict(vocab_size=512, hidden_size=128, intermediate_size=512, num_layers=2,
+               num_heads=8, num_kv_heads=2, head_dim=64, sliding_window=16, sliding_pattern=2)
+    model = Gemma3(Gemma3Config(**cfg))
+    params = model.init(torch.Generator().manual_seed(0))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="uint4", group_size=16), ignore=["lm_head"]))
+    params, _ = oqt.quantize(model, params, oqt.QConfig(
+        weights=oqt.QWeightArgs(dtype="int8", group_size=-1, symmetric=True),
+        ignore=[r"^layers\."]))
+    params = fuse_gemma3_projections(params)
+    ids = np.random.default_rng(3).integers(1, 512, size=(4, 8)).astype(np.int32)
+    common = dict(cfg=cfg, params=params, ids=ids, lengths=np.full((4,), 8, np.int32), steps=4,
+                  device="cuda")
+    kernel_library()  # built once here, before the ranks start
+    results = run_world(2, {"single": ("engine", dict(dp=0, tp=1, **common)),
+                            "tp2": ("engine", dict(dp=1, tp=2, **common))}, tmp_path)
+    single = result(results, "single")
+    scale = np.abs(single["logits"]).max()
+    for rank in range(2):
+        got = result(results, "tp2", rank)
+        assert np.abs(got["logits"] - single["logits"]).max() <= 1e-4 * scale
+        np.testing.assert_array_equal(got["gen"], single["gen"])
+        # Per forward: 2 layers x (qkv, o, gate_up, down) W4 and one W8 head.
+        assert got["launches"] == (8 * 5, 5) and single["launches"] == (8 * 5, 5)

@@ -12,8 +12,11 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 # chip_smoke.py and the GPU tests run on the card's machine, which has no JAX.
+# The rank bodies of tests/torch_world.py run in spawned processes, which
+# must not import JAX either.
 PORT_FILES = sorted((REPO / "onnx_quantize_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+    REPO / "tests" / "torch_world.py"]
 FORBIDDEN = ("jax", "jaxlib", "onnx_quantize_tpu", "ml_dtypes", "pydantic", "triton")
 
 
@@ -51,12 +54,27 @@ def test_port_sources_found():
             "prepasses/rotate.py", "models/llama.py", "models/structured.py", "core/pack.py",
             "checkpoint.py", "interop.py", "engine/scheduler.py", "engine/sampling.py",
             "models/moe.py", "_logging.py", "engine/speculative.py",
-            "engine/spec_scheduler.py"} <= scanned
+            "engine/spec_scheduler.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/comm.py", "parallel/tp.py", "parallel/sharding.py", "parallel/tp_ops.py",
+            "parallel/collective.py", "parallel/ep.py", "parallel/pp.py",
+            "parallel/cp.py"} <= scanned
+    assert "torch_world.py" in names
+
+
+@pytest.mark.parametrize("path", sorted((REPO / "onnx_quantize_tpu_torch" / "parallel").glob(
+    "*.py")), ids=lambda p: p.name)
+def test_parallel_package_spawns_no_process(path):
+    """The caller starts the ranks: the package imports no process launcher."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("multiprocessing", "subprocess")
+           or m.startswith("torch.multiprocessing")]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 def test_importing_the_port_builds_no_kernel():
     import onnx_quantize_tpu_torch.engine  # noqa: F401
     import onnx_quantize_tpu_torch.models  # noqa: F401
+    import onnx_quantize_tpu_torch.parallel  # noqa: F401
     import onnx_quantize_tpu_torch.tools  # noqa: F401
     from onnx_quantize_tpu_torch.ops import kernels
 

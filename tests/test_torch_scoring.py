@@ -3,6 +3,8 @@
 caches, fused and unfused, with row chunking; and the sliding-window
 ``perplexity_from_tokens`` with one window and several."""
 
+import types
+
 import jax
 import numpy as np
 import pytest
@@ -124,5 +126,10 @@ def test_perplexity_eval_reads_npy_and_refuses_a_mesh(tiny128, tmp_path):
     got = perplexity_eval(tmodel, tparams, tokens_path=str(tmp_path / "tokens.npy"),
                           max_length=16, stride=8)
     assert got == perplexity_from_tokens(tmodel, tparams, tokens, max_length=16, stride=8)
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        perplexity_from_tokens(tmodel, tparams, tokens, mesh=object())
+    # The mesh reaches context-parallel scoring, which refuses a sequence axis
+    # that does not divide the window (the multi-rank runs are in
+    # tests/test_torch_pp_cp.py).
+    mesh = types.SimpleNamespace(axis_names=("seq",), shape={"seq": 3}, coords={"seq": 0})
+    with pytest.raises(ValueError, match="not divisible by cp shards 3"):
+        perplexity_eval(tmodel, tparams, tokens_path=str(tmp_path / "tokens.npy"),
+                        max_length=16, stride=8, mesh=mesh)
