@@ -147,8 +147,8 @@ Phases (any failed check exits non-zero; each prints its seconds):
    ppl with only its two matmul kernels swapped; prints
    the bf16 model's ppl beside them.
 7. Decode-path scoring: ``score_nll`` of 32 seeded rows of 544 tokens through
-   the first 9 of the 270M's 18 layers (``DECODE_SCORING_LAYERS``; a depth
-   cut for the time limit) and an engine with an int8 cache and
+   the first 6 of the 270M's 18 layers, five sliding-window and one global
+   (``DECODE_SCORING_LAYERS``; a depth cut for the time limit) and an engine with an int8 cache and
    ``fused_attention=True`` (flash decode in every layer of every one-token
    forward, past the 512-token window).
    Checks the launch counts and the NLL against ``fused_attention=False``;
@@ -175,8 +175,10 @@ Phases (any failed check exits non-zero; each prints its seconds):
    phase 5's fixed-batch W4 rate, occupancy, rounds and admission rounds,
    latency percentiles and seconds.
 10. Speculative decoding: Gemma-3-1B (published widths: hidden 1152,
-   intermediate 6912, 26 layers, 4 query heads on 1 KV head of 256, vocab
-   262,144), full depth, bf16 from seed 0, W4 g128 body and int8
+   intermediate 6912, 4 query heads on 1 KV head of 256, vocab 262,144) cut
+   to the first 6 of its 26 layers (``SPEC_TARGET_LAYERS``, five
+   sliding-window and one global; a depth cut for the time limit), bf16 from
+   seed 0, W4 g128 body and int8
    per-channel lm_head, fused, int8 KV, max_seq 512, as the target (its
    sites are among phase 3's cases at M = 8 and 40). delta is twice the
    largest |difference| between the target's (B, k+1) verify logits and its
@@ -184,7 +186,7 @@ Phases (any failed check exits non-zero; each prints its seconds):
    target-only one or first leave it where the target-only top-2 logits lie
    within delta. (a) Phase 4's 270M W4 tree with flash decode drafts, k=4,
    B=8, prompts of 128 seeded ids, 32 new tokens: one round's launches (4
-   draft steps of 72 W4, 1 W8 and 18 flash decode; a verify of 104 W4 and 1
+   draft steps of 72 W4, 1 W8 and 18 flash decode; a verify of 24 W4 and 1
    W8) counted under ``torch.cuda.set_sync_debug_mode("error")``, the delta
    rule against target-only ``generate``; prints rounds, mean emitted per
    live round, ms a round and tok/s beside target-only decode (CUDA
@@ -260,6 +262,29 @@ Phases (any failed check exits non-zero; each prints its seconds):
    line. Phase 3 also runs W4 and W8 at the 4B's rank-local shapes and
    flash decode at 4 query heads on 2 KV heads. A failed rank fails the
    phase.
+13. Tools and examples. (a) ``python -m
+   onnx_quantize_tpu_torch.tools.benchmark --control`` in a subprocess, as
+   a user runs it: w4 at the 270M's fused gate_up (32 x 640 x 4096) and
+   down (32 x 2048 x 640), w8 at its lm_head (32 x 640 x 262,144), w4a8 at
+   the gate_up, and the command line's defaults (w4, 1024 x 2048 x 2048);
+   each must exit 0 with one JSON line of the report's keys, read 0 <
+   pct_roofline <= 100 and a time no lower than the bound computed here
+   from the shapes (``tool_bytes``); each is printed beside phase 3's time
+   for the same kernel and shape. (b) Each example in process through its
+   ``main(argv)``, under the launch counters, its checkpoint written to a
+   temporary directory: gemma3_rtn and gemma3_awq at Gemma-3-270M's full
+   width and depth, llama_rtn and llama_rotate_w4 (RTN) at Llama-3.2-1B's,
+   moe_rtn at Qwen1.5-MoE-A2.7B's width with ``MOE_EXAMPLE_LAYERS`` of its
+   24 layers (the full float32 tree is about 57 GB). Each checkpoint is
+   reloaded by ``load_checkpoint`` on the card (online rotations stamped
+   again; the MoE in the example's engine layout, ragged prefill off),
+   prefilled (B=8, T=128) and decoded 8 greedy steps, launching exactly its
+   W4 and W8 sites a forward, its logits finite and within 5% of the
+   largest logit of the plain run. The serving example with its defaults
+   (270M bf16, 32 requests, 8 slots, chunk 16, pipeline 8) finishes every
+   request within its budget with one W8 and 72 W4 launches a forward; the
+   BERT example with its defaults prints six accuracies in [0, 1]. Its
+   launches go into the kernels line.
 
 Phase 8 counts the device operations (as the nodes of a CUDA graph
 captured from one call) of the activation quantizer, the zero pad of its
@@ -292,12 +317,6 @@ import torch
 REPO = Path(__file__).resolve().parent
 SEED = 0
 
-# Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): the least
-# time for a kernel's work is the larger of its bytes over the memory rate
-# and its operations over the peak for their type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "float32": 67e12}
-
 
 class SmokeFailure(RuntimeError):
     pass
@@ -306,13 +325,6 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 # Device cycles (~0.25 ms) of a spin queued before each timed call, so that
@@ -390,9 +402,13 @@ def nbytes(*tensors) -> int:
 
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
     """(least milliseconds, what bounds them) for work of ``bytes_moved`` bytes
-    and ``ops`` operations of type ``kind`` on the card."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[kind]
+    and ``ops`` operations of type ``kind`` on the card: the larger of the
+    bytes over the memory rate and the operations over the peak for their
+    type, at the published H100 SXM peaks (``tools.benchmark.H100``)."""
+    from onnx_quantize_tpu_torch.tools.benchmark import H100
+
+    t_bytes = bytes_moved / H100.hbm_bytes_per_s
+    t_ops = ops / H100.peak_ops_per_s(kind)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -660,6 +676,7 @@ def run_kernel_checks(gen, cases=KERNEL_CASES) -> dict:
                     b_ms, b_by = bound(nbytes(*ops, y), 2 * M * K * N, MATMUL_KIND[kernel])
                     line += (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
                              f"({b_by})")
+                    res.setdefault("case_ms", {})[(name, M)] = ms
                     if M == 32:  # one decode step's shapes
                         res["ms"] += ms
                         res["plain_ms"] += plain_ms
@@ -2797,10 +2814,10 @@ def run_window_scoring(model, qparams, a8params, fparams, card) -> tuple[dict, d
 FUSED_NLL_REL_TOL = 2e-3
 
 
-# Phase 7's depth: the first 9 of the 270M's 18 layers (one global, eight
-# sliding-window), cut to keep the run inside its time limit on a slow host:
-# each of its one-token forwards is host-bound, so its time follows depth.
-DECODE_SCORING_LAYERS = 9
+# Phase 7's depth: the first 6 of the 270M's 18 layers (five sliding-window,
+# one global), cut to keep the run inside its time limit on a slow host: each
+# of its one-token forwards is host-bound, so its time follows depth.
+DECODE_SCORING_LAYERS = 6
 
 
 def run_decode_scoring(model, qparams, card) -> dict:
@@ -3104,12 +3121,16 @@ SPEC_SERVE_REQUESTS, SPEC_SERVE_ROUNDS = 16, 4
 # verify's argmax and the step's part at a near tie, and where the budget cuts
 # the last round; 0.9 k leaves room for that and nothing else.
 SPEC_SELF_EMITTED_MIN = 0.9
+# The target's depth: the first 6 of Gemma-3-1B's 26 layers (five
+# sliding-window, one global), cut to keep the run inside its time limit: its
+# rounds are host-bound, so their time follows depth.
+SPEC_TARGET_LAYERS = 6
 
 
 def build_gemma3_1b():
-    """Gemma-3-1B (published widths, full depth) in bf16 from a seeded init at
-    the port's initializer scale (phase 4's), W4 g128 body and int8
-    per-channel lm_head, fused; returns (model, tree)."""
+    """Gemma-3-1B (published widths, the first ``SPEC_TARGET_LAYERS`` layers)
+    in bf16 from a seeded init at the port's initializer scale (phase 4's),
+    W4 g128 body and int8 per-channel lm_head, fused; returns (model, tree)."""
     import onnx_quantize_tpu_torch as oqt
     from onnx_quantize_tpu_torch.models.gemma3 import (
         GEMMA3_1B,
@@ -3117,7 +3138,8 @@ def build_gemma3_1b():
         fuse_gemma3_projections,
     )
 
-    model = Gemma3(dataclasses.replace(GEMMA3_1B, dtype="bfloat16"))
+    model = Gemma3(dataclasses.replace(GEMMA3_1B, dtype="bfloat16",
+                                       num_layers=SPEC_TARGET_LAYERS))
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
     tree, _ = oqt.quantize(model, params, oqt.QConfig(
         weights=oqt.QWeightArgs(dtype="uint4", group_size=128), ignore=["lm_head"]))
@@ -3279,7 +3301,8 @@ def spec_rate(spec, prompts, budget: int) -> tuple[float, float, float]:
 
 def run_speculative(draft_model, draft_tree, card: str) -> dict:
     """Phase 10: speculative decoding with Gemma-3-1B as the target, at
-    published widths and full depth. Returns the launches of its arms."""
+    published widths, depth cut to ``SPEC_TARGET_LAYERS``. Returns the
+    launches of its arms."""
     from onnx_quantize_tpu_torch.engine import (
         ContinuousBatchingScheduler,
         SpeculativeDecoder,
@@ -3291,6 +3314,8 @@ def run_speculative(draft_model, draft_tree, card: str) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model, tree = build_gemma3_1b()
+    print(f"phase 10 depth cut: the first {SPEC_TARGET_LAYERS} of Gemma-3-1B's 26 layers",
+          flush=True)
     cfg, dcfg, k = model.cfg, draft_model.cfg, SPEC_K
     V = cfg.vocab_size
     check(dcfg.vocab_size == V, "the draft and the target must share a vocabulary")
@@ -4811,6 +4836,259 @@ def run_parallel(model270, tree270, card: str) -> dict:
     return launches
 
 
+# -- phase 13: the kernel benchmark tool and the examples -----------------------------
+
+# The tool's cases: (label, kernel, M, K, N, phase 3's case at M = 32 with
+# the same kernel and shape, or None); the last one runs the command line's
+# defaults (w4, 1024 x 2048 x 2048) and passes no shape.
+TOOL_CASES = [
+    ("w4 at the 270M's fused gate_up", "w4", 32, 640, 4096, "gate_up"),
+    ("w4 at the 270M's down", "w4", 32, 2048, 640, "down"),
+    ("w8 at the 270M's lm_head", "w8", 32, 640, 262144, "lm_head"),
+    ("w4a8 at the 270M's fused gate_up", "w4a8", 32, 640, 4096, "gate_up"),
+    ("the command line's defaults", "w4", 1024, 2048, 2048, None),
+]
+TOOL_REPORT_KEYS = {"shape", "quant", "time_us", "tflops", "hbm_gbps", "bound", "pct_roofline",
+                    "chip", "dense_time_us", "dense_hbm_gbps", "pct_of_dense_control",
+                    "speedup_vs_dense", "device", "card"}
+TOOL_GROUP = 128  # the command line's default group size
+
+
+def tool_bytes(kernel: str, M: int, K: int, N: int, gs: int = TOOL_GROUP) -> int:
+    """Bytes the tool's matmul must move, from the shapes of the weight it
+    builds (RTN per group, asymmetric; 4-bit in group pairs with the
+    engine's baked float32 scales and zero points, 8-bit with float32 scales
+    and int8 zero points), bf16 x and the float32 output."""
+    groups = -(-K // gs)
+    if kernel in ("w4", "w4a8"):
+        pairs = -(-groups // 2)
+        weight = pairs * gs * N + 2 * (2 * pairs * N * 4)
+    else:
+        weight = K * N + groups * N * (4 + 1)
+    return weight + M * K * 2 + M * N * 4
+
+
+def run_tool_case(label: str, kernel: str, M: int, K: int, N: int, flags: list[str]) -> dict:
+    """The tool as a user runs it, from the checkout: exit 0, one JSON line
+    with the report's keys, 0 < pct_roofline <= 100 and a time no lower than
+    the bound computed here from the shapes."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "onnx_quantize_tpu_torch.tools.benchmark",
+                          *flags, "--control"], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"benchmark tool ({label}) exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 1, f"benchmark tool ({label}) printed {len(lines)} lines")
+    report = json.loads(lines[0])
+    check(set(report) == TOOL_REPORT_KEYS, f"benchmark tool ({label}) keys {sorted(report)}")
+    check(report["shape"] == f"{M}x{K}x{N}", f"benchmark tool ({label}) shape {report['shape']}")
+    check(0 < report["pct_roofline"] <= 100,
+          f"benchmark tool ({label}) read {report['pct_roofline']}% of its roofline")
+    bound_ms, bound_by = bound(tool_bytes(kernel, M, K, N), 2 * M * K * N,
+                               "int8" if kernel == "w4a8" else "bf16")
+    check(report["time_us"] >= 1e3 * bound_ms, f"benchmark tool ({label}) read "
+                                               f"{report['time_us']} us, under its bound")
+    report.update(bound_ms=bound_ms, bound_by=bound_by, seconds=secs)
+    return report
+
+
+def run_tools(kernel_results: dict, card: str) -> None:
+    """Phase 13 (a): ``python -m onnx_quantize_tpu_torch.tools.benchmark
+    --control`` at the 270M's shapes and at its defaults, each time beside
+    phase 3's for the same kernel and shape."""
+    for label, kernel, M, K, N, case in TOOL_CASES:
+        flags = (["--kernel", kernel, "--m", str(M), "--k", str(K), "--n", str(N)]
+                 if case else [])
+        r = run_tool_case(label, kernel, M, K, N, flags)
+        what = {"w4": "uint4 g128", "w8": "int8 symmetric per channel",
+                "w4a8": "uint4 g128, the kernel alone: the tool times the whole A8 site, "
+                        "its activation quantizer and pad too"}[kernel]
+        phase3 = (f"{kernel_results[kernel]['case_ms'][(case, M)] * 1e3:.1f} us (phase 3: "
+                  f"{what}; L2 flushed, one call timed alone)" if case else "no phase 3 case")
+        print(f"phase 13 (a) benchmark tool, {label} ({r['shape']}, {r['quant']}) on "
+              f"{r['card']}: {r['time_us']} us (slope between trip counts of a CUDA graph over "
+              f"copies past twice L2), {r['pct_roofline']}% of the roofline ({r['bound']} "
+              f"bound; bound here {1e3 * r['bound_ms']:.2f} us by {r['bound_by']}), "
+              f"{r['tflops']} TFLOP/s, {r['hbm_gbps']} GB/s; dense bf16 control "
+              f"{r['dense_time_us']} us, pct_of_dense_control {r['pct_of_dense_control']}, "
+              f"speedup_vs_dense {r['speedup_vs_dense']}; phase 3's time {phase3}; "
+              f"{r['seconds']:.1f} s with the interpreter's start", flush=True)
+        check(r["card"] == card, f"benchmark tool read the card as {r['card']!r}")
+
+
+# Phase 13 (b)'s check of a checkpoint: prefill B x T seeded ids, then greedy steps.
+EXAMPLE_B, EXAMPLE_T, EXAMPLE_STEPS = 8, 128, 8
+# Qwen1.5-MoE-A2.7B's example runs this many of its 24 layers.
+MOE_EXAMPLE_LAYERS = 1
+
+
+def kernel_sites(tree) -> dict:
+    """Launches a forward makes, from a tree's quantized sites: W4 for each
+    packed site, W8 for each 8-bit one, a stacked site once per expert."""
+    from onnx_quantize_tpu_torch.nn.qtensor import QTensor
+    from onnx_quantize_tpu_torch.utils import tree_map
+
+    counts = {name: 0 for name in kernel_modules()}
+
+    def visit(leaf):
+        if isinstance(leaf, QTensor):
+            counts["w4" if leaf.meta.packed else "w8"] += (
+                leaf.data.shape[0] if leaf.data.ndim == 3 else 1)
+
+    tree_map(visit, tree)
+    return counts
+
+
+def serve_checkpoint(label: str, path: str, card: str) -> dict:
+    """A saved example checkpoint loaded on the card (its online rotations
+    stamped again, an MoE in the example's engine layout with the ragged
+    prefill off, so every forward runs every expert site), prefilled and
+    decoded: exactly the tree's W4 and W8 sites launched a forward, logits
+    finite and within 5% of the largest logit of the plain run. Returns the
+    launches."""
+    from onnx_quantize_tpu_torch.checkpoint import load_checkpoint
+    from onnx_quantize_tpu_torch.engine import InferenceEngine, prepare_kernel_scales
+    from onnx_quantize_tpu_torch.models.gemma3 import fuse_gemma3_projections
+    from onnx_quantize_tpu_torch.models.moe import stack_moe_experts
+    from onnx_quantize_tpu_torch.prepasses.rotate import stamp_online_rotations
+
+    (model, tree), load_s = timed(lambda: load_checkpoint(path, device="cuda"))
+    cfg = model.cfg
+    online = json.loads((Path(path) / "meta.json").read_text())["extra"]["online_rotations"]
+    if any(online.values()):
+        stamp_online_rotations(model, qk=online["qk"], down=online["down"], seed=0)
+    if cfg.num_experts:
+        tree = stack_moe_experts(prepare_kernel_scales(fuse_gemma3_projections(tree)))
+        for layer in model.layers:
+            layer.mlp.use_ragged_prefill = False
+    per_forward = kernel_sites(tree)
+    engine = InferenceEngine(model, tree, max_batch=EXAMPLE_B, max_seq=2 * EXAMPLE_T,
+                             kv_quant=True, dtype=cfg.torch_dtype)
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(1, cfg.vocab_size, size=(EXAMPLE_B, EXAMPLE_T)).astype(np.int32)
+    lengths = np.full((EXAMPLE_B,), EXAMPLE_T, np.int32)
+
+    def served():
+        cache, logits = engine.prefill(engine.new_cache(), ids, lengths)
+        prefill = kernel_counts()
+        _, tokens = engine.decode_multi(cache, torch.argmax(logits, dim=-1), steps=EXAMPLE_STEPS)
+        return logits, tokens, prefill
+
+    reset_counts()
+    (logits, tokens, prefill), serve_s = timed(served)
+    total = kernel_counts()
+    with plain_kernels():
+        (plain_logits, plain_tokens, _), plain_s = timed(served)
+    check(kernel_counts() == total, f"{label}: the plain run launched kernels")
+    want = {k: n * (1 + EXAMPLE_STEPS) for k, n in per_forward.items()}
+    check(prefill == per_forward and total == want,
+          f"{label}: a prefill launched {prefill} and it with {EXAMPLE_STEPS} steps {total}, "
+          f"expected {per_forward} a forward (the tree's sites) and no other")
+    check(tuple(logits.shape) == (EXAMPLE_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{label}: prefill logits {logits.shape}, "
+                                                  "or not finite")
+    diff = (logits.float() - plain_logits.float()).abs().max().item()
+    peak = plain_logits.float().abs().max().item()
+    agree = (tokens == plain_tokens).float().mean().item()
+    print(f"phase 13 (b) {label} served on {card}: loaded in {load_s:.2f} s, online rotations "
+          f"{online}; launches a forward {({k: v for k, v in per_forward.items() if v})}; "
+          f"prefill B={EXAMPLE_B} T={EXAMPLE_T} and {EXAMPLE_STEPS} greedy steps {serve_s:.2f} "
+          f"s (plain {plain_s:.2f}); prefill logits kernel vs plain max_abs_diff {diff:.4e}, "
+          f"max|logit| {peak:.4e} (bar 5%); greedy tokens equal {agree:.4f} (not gated)",
+          flush=True)
+    check(diff <= 0.05 * peak, f"{label}: logits through the kernels {diff:.4e} from plain")
+    return total
+
+
+def run_examples(card: str) -> dict:
+    """Phase 13 (b): each example in process through its ``main(argv)``, at
+    full width (the MoE's depth cut), its checkpoint served; the serving and
+    BERT examples with their defaults. Returns the launches."""
+    from onnx_quantize_tpu_torch.examples import llama_rotate_w4, llama_rtn, moe_rtn, serving
+    from onnx_quantize_tpu_torch.examples.bert import bert_sst2
+    from onnx_quantize_tpu_torch.examples.gemma3 import gemma3_awq, gemma3_rtn
+    from onnx_quantize_tpu_torch.models.moe import MoE
+
+    launches = {name: 0 for name in kernel_modules()}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] += n
+
+    full = moe_rtn.QWEN15_MOE_A27B
+    body = sum(s.in_features * s.out_features for s in MoE(full).linear_sites()
+               if s.name != "lm_head" and not s.name.endswith(("router", "shared_gate")))
+    floats = 4 * (full.vocab_size * full.hidden_size * 2 + body)
+    print(f"phase 13 (b) moe_rtn depth cut: {MOE_EXAMPLE_LAYERS} of Qwen1.5-MoE-A2.7B's "
+          f"{full.num_layers} layers at full width; at full depth its float32 tree would take "
+          f"{floats / 1e9:.1f} GB of device memory and its uint4 checkpoint about "
+          f"{(body / 2 + 4 * full.vocab_size * full.hidden_size * 2) / 1e9:.1f} GB of disk",
+          flush=True)
+    examples = [("gemma3_rtn (Gemma-3-270M, int8 g128)", gemma3_rtn, []),
+                ("gemma3_awq (Gemma-3-270M, AWQ uint4 g128)", gemma3_awq, []),
+                ("llama_rtn (Llama-3.2-1B, int8 g128)", llama_rtn, []),
+                ("llama_rotate_w4 (Llama-3.2-1B, Hadamard R1, RTN uint4 g128)",
+                 llama_rotate_w4, []),
+                (f"moe_rtn (Qwen1.5-MoE-A2.7B, {MOE_EXAMPLE_LAYERS} of 24 layers, uint4 g128)",
+                 moe_rtn, [])]
+    moe_rtn.QWEN15_MOE_A27B = dataclasses.replace(full, num_layers=MOE_EXAMPLE_LAYERS)
+    try:
+        for label, module, flags in examples:
+            with tempfile.TemporaryDirectory() as tmp:
+                out = str(Path(tmp) / "ckpt")
+                reset_counts()
+                _, secs = timed(lambda: module.main(["--output", out, *flags]))
+                check(sum(kernel_counts().values()) == 0,
+                      f"{label}: quantizing launched {kernel_counts()}")
+                size = sum(f.stat().st_size for f in Path(out).iterdir())
+                print(f"phase 13 (b) {label}: main() quantized and saved in {secs:.2f} s, "
+                      f"checkpoint {size / 1e9:.2f} GB", flush=True)
+                add(serve_checkpoint(label, out, card))
+            torch.cuda.empty_cache()
+    finally:
+        moe_rtn.QWEN15_MOE_A27B = full
+
+    reset_counts()
+    (finished, stats), secs = timed(lambda: serving.main([]))
+    counts = kernel_counts()
+    add(counts)
+    reqs = serving.workload(serving.config(False).vocab_size, 32)
+    check(len(finished) == len(reqs), f"serving example: {len(finished)} of 32 finished")
+    for r in finished:
+        kw = reqs[r.request_id][1]
+        ended = kw["eos_token_id"] is not None and r.output[-1] == kw["eos_token_id"]
+        check(len(r.output) == kw["max_new_tokens"]
+              or (ended and len(r.output) < kw["max_new_tokens"]),
+              f"serving example: request {r.request_id} emitted {len(r.output)} of "
+              f"{kw['max_new_tokens']}")
+    forwards = stats["rounds"] * 16 + stats["admit_rounds"]
+    per_forward = 4 * serving.config(False).num_layers
+    check(counts["w8"] == forwards and counts["w4"] == per_forward * forwards
+          and sum(counts.values()) == counts["w4"] + counts["w8"],
+          f"serving example launched {counts}, expected {forwards} W8 and "
+          f"{per_forward * forwards} W4 and no other")
+    generated = sum(len(r.output) for r in finished)
+    print(f"phase 13 (b) serving example (Gemma-3-270M bf16, W4 g128, int8 head, int8 KV, 8 "
+          f"slots, chunk 16, pipeline 8) on {card}: 32 requests finished within their budgets, "
+          f"{generated} tokens in {secs:.2f} s with the build of its trees, rounds "
+          f"{stats['rounds']}, admission rounds {stats['admit_rounds']}, launches {counts} "
+          f"(one W8 and {per_forward} W4 a forward)", flush=True)
+    del finished
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    rows, secs = timed(lambda: bert_sst2.main([]))
+    add(kernel_counts())
+    check(len(rows) == 6 and all(0.0 <= acc <= 1.0 for _, acc in rows),
+          f"bert_sst2 example printed {rows}")
+    print(f"phase 13 (b) bert_sst2 example (400 steps, 512 sentences) on {card} in {secs:.2f} "
+          f"s: " + ", ".join(f"{name} {acc:.4f}" for name, acc in rows)
+          + f"; launches {({k: v for k, v in kernel_counts().items() if v})}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4820,6 +5098,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from onnx_quantize_tpu_torch.ops.kernels import build_kernel_library, kernel_library
+    from onnx_quantize_tpu_torch.tools.benchmark import card_line
 
     # Phase 1: device.
     card = card_line()
@@ -5071,7 +5350,7 @@ def main() -> int:
     phase_done("9 serving")
 
     # Phase 10: speculative decoding, phase 4's 270M W4 tree drafting for
-    # Gemma-3-1B at full width.
+    # Gemma-3-1B at full width (depth cut).
     for key, n in run_speculative(model, qparams, card).items():
         launches[key] += n
     phase_done("10 speculative decoding")
@@ -5087,6 +5366,13 @@ def main() -> int:
     for key, n in run_parallel(model, qparams, card).items():
         launches[key] += n
     phase_done("12 parallel")
+
+    # Phase 13: the kernel benchmark tool (subprocesses) and the examples (in
+    # process, under the launch counters).
+    run_tools(kernel_results, card)
+    for key, n in run_examples(card).items():
+        launches[key] += n
+    phase_done("13 tools and examples")
 
     # name in the kernels line, CUDA source, replaced TPU kernel.
     sources = {

@@ -43,8 +43,8 @@ def test_port_sources_found():
             "matmul_q8.py", "mlp_w4.py", "chip_smoke.py"} <= names
     # The calibration and pre-pass subpackages, QuaRot, the Llama and
     # structured models, packing, checkpoints, the interop, the serving
-    # scheduler, the MoE family, the package logger and speculative decoding
-    # are scanned too.
+    # scheduler, the MoE family, the package logger, speculative decoding and
+    # parallelism are scanned too.
     scanned = {str(p.relative_to(REPO / "onnx_quantize_tpu_torch")) for p in PORT_FILES
                if p.is_relative_to(REPO / "onnx_quantize_tpu_torch")}
     assert {"calibration/__init__.py", "calibration/base.py", "calibration/calibrate.py",
@@ -58,6 +58,12 @@ def test_port_sources_found():
             "parallel/comm.py", "parallel/tp.py", "parallel/sharding.py", "parallel/tp_ops.py",
             "parallel/collective.py", "parallel/ep.py", "parallel/pp.py",
             "parallel/cp.py"} <= scanned
+    # The kernel benchmark tool and the examples package.
+    assert {"tools/benchmark.py", "examples/__init__.py", "examples/gemma3/__init__.py",
+            "examples/gemma3/gemma3_rtn.py", "examples/gemma3/gemma3_awq.py",
+            "examples/llama_rtn.py", "examples/llama_rotate_w4.py", "examples/moe_rtn.py",
+            "examples/serving.py", "examples/bert/__init__.py",
+            "examples/bert/bert_sst2.py"} <= scanned
     assert "torch_world.py" in names
 
 
@@ -73,9 +79,15 @@ def test_parallel_package_spawns_no_process(path):
 
 def test_importing_the_port_builds_no_kernel():
     import onnx_quantize_tpu_torch.engine  # noqa: F401
+    import onnx_quantize_tpu_torch.examples.bert.bert_sst2  # noqa: F401
+    import onnx_quantize_tpu_torch.examples.gemma3.gemma3_awq  # noqa: F401
+    import onnx_quantize_tpu_torch.examples.llama_rotate_w4  # noqa: F401
+    import onnx_quantize_tpu_torch.examples.moe_rtn  # noqa: F401
+    import onnx_quantize_tpu_torch.examples.serving  # noqa: F401
     import onnx_quantize_tpu_torch.models  # noqa: F401
     import onnx_quantize_tpu_torch.parallel  # noqa: F401
     import onnx_quantize_tpu_torch.tools  # noqa: F401
+    import onnx_quantize_tpu_torch.tools.benchmark  # noqa: F401
     from onnx_quantize_tpu_torch.ops import kernels
 
     assert kernels._LIBRARY is None
