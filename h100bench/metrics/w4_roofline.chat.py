@@ -1,0 +1,18 @@
+"""The W4 kernel's share of its roofline in decode and admission: the least time of the work the cell's inputs need
+(``benchlib/roofline.py``) over the device time of the kernels that ``PATTERN``
+names in the traced window."""
+
+NAME = "w4_roofline.chat"
+UNIT = "%"
+LAYER = "kernels"
+MOVES = "gen_tok_s"
+
+PATTERN = r"\bw4(_mma)?_kernel\b"
+
+
+def read(obs):
+    reading, least = obs.get("trace"), obs.get("least_s", {}).get("w4")
+    if reading is None or not least:
+        return None
+    spent = reading.device_s(PATTERN)
+    return 100.0 * least / spent if spent else None
