@@ -48,6 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from onnx_quantize_tpu_torch import tracing
 from onnx_quantize_tpu_torch.engine.kv_cache import (
     KVCacheConfig,
     admitted_rows,
@@ -409,7 +410,8 @@ class InferenceEngine:
         tokens = self._token_ids(tokens)
         active = (torch.ones(tokens.shape, dtype=torch.bool, device=self.device)
                   if active is None else self._tensor(active, torch.bool))
-        return cache, self._decode_step(cache, tokens, active)
+        with tracing.span("engine.decode"):
+            return cache, self._decode_step(cache, tokens, active)
 
     @torch.inference_mode()
     def decode_multi(self, cache: dict, tokens, steps: int, active=None,
@@ -568,74 +570,79 @@ class InferenceEngine:
                     admit_ids=mine(admit_ids), admit_lengths=mine(admit_lengths),
                     admit_mask=mine(admit_mask), admit_budgets=mine(admit_budgets))
                 return cache, self._gathered(blob), tuple(self._gathered(c) for c in carry)
-        need_temp, need_topk, need_topp = variant
-        temps, top_ks, top_ps = sampling_arrays
-        temps = self._tensor(temps, torch.float32)
-        top_ks = self._tensor(top_ks, torch.int32)
-        top_ps = self._tensor(top_ps, torch.float32)
+        with tracing.span("engine.serve_chunk"):
+            need_temp, need_topk, need_topp = variant
+            temps, top_ks, top_ps = sampling_arrays
+            temps = self._tensor(temps, torch.float32)
+            top_ks = self._tensor(top_ks, torch.int32)
+            top_ps = self._tensor(top_ps, torch.float32)
 
-        def samp(logits):
-            return sample_batch(logits, generator, temps, top_ks, top_ps, need_temp=need_temp,
-                                need_topk=need_topk, need_topp=need_topp,
-                                window=self._noise_window)
+            def samp(logits):
+                return sample_batch(logits, generator, temps, top_ks, top_ps, need_temp=need_temp,
+                                    need_topk=need_topk, need_topp=need_topp,
+                                    window=self._noise_window)
 
-        if carry is not None:
-            toks, done, budgets = carry
-        else:
-            toks = self._token_ids(tokens)
-            done = ~self._tensor(active, torch.bool)
-            budgets = self._tensor(budgets, torch.int32)
-        eos = self._tensor(eos, torch.int64)
-        eos_on = eos >= 0
-        B = toks.shape[0]
-        if admit_ids is not None:
-            if admit_slots is not None:
-                with self._without_auto_ragged():
-                    logits_a, greedy_a, rows, slot_index = self._admit_prefill(
-                        cache, admit_ids, admit_lengths, admit_slots)
-                mask = torch.zeros((B,), dtype=torch.bool, device=self.device).index_fill_(
-                    0, slot_index, True)
-                if need_temp:
-                    # The noise is drawn per position of the (B, V) matrix, so
-                    # the A rows go into their slots' rows first: the sampled
-                    # tokens then equal the masked path's.
-                    last = torch.zeros((B, logits_a.shape[-1]), dtype=logits_a.dtype,
-                                       device=self.device).index_put((slot_index,), logits_a[rows])
-                    t0 = samp(last)
-                else:
-                    t0 = toks.index_put((slot_index,), greedy_a[rows].to(toks.dtype))
+            if carry is not None:
+                toks, done, budgets = carry
             else:
-                with self._without_auto_ragged():
-                    cache, last = self.prefill(cache, admit_ids, admit_lengths,
-                                               slot_mask=admit_mask)
-                mask = self._tensor(admit_mask, torch.bool)
-                t0 = samp(last)
-            toks = torch.where(mask, t0, toks)
-            emitted0 = mask.to(torch.int32)
-            done = (done & ~mask) | (mask & eos_on & (t0 == eos))
-            if admit_budgets is not None:
-                budgets = torch.where(mask, self._tensor(admit_budgets, torch.int32), budgets)
-        else:
-            t0 = toks
-            emitted0 = torch.zeros_like(budgets)
-        done = done | (emitted0 >= budgets) | (cache["lengths"] >= self.max_seq)
-        emitted = torch.zeros_like(budgets)
-        out = []
-        for _ in range(steps):
-            act = ~done  # a frozen slot stays frozen for the rest of the round
-            logits = self._decode_step(cache, toks, act)
-            nxt = samp(logits)
-            # A frozen slot emits padding, which the host drops by ``emitted``.
-            nxt = torch.where(done, torch.where(eos_on, eos.clamp(min=0), toks), nxt)
-            emitted = emitted + act.to(torch.int32)
-            done = (done | (act & eos_on & (nxt == eos)) | (emitted0 + emitted >= budgets)
-                    | (cache["lengths"] >= self.max_seq))
-            out.append(nxt)
-            toks = nxt
-        cols = [t0[:, None], *(o[:, None] for o in out), emitted[:, None], done[:, None],
-                cache["lengths"][:, None]]
-        blob = torch.cat([c.to(torch.int32) for c in cols], dim=1)
-        return cache, blob, (toks, done, budgets - emitted0 - emitted)
+                toks = self._token_ids(tokens)
+                done = ~self._tensor(active, torch.bool)
+                budgets = self._tensor(budgets, torch.int32)
+            eos = self._tensor(eos, torch.int64)
+            eos_on = eos >= 0
+            B = toks.shape[0]
+            if admit_ids is not None:
+                with tracing.span("engine.admit"):
+                    if admit_slots is not None:
+                        with self._without_auto_ragged():
+                            logits_a, greedy_a, rows, slot_index = self._admit_prefill(
+                                cache, admit_ids, admit_lengths, admit_slots)
+                        mask = torch.zeros((B,), dtype=torch.bool,
+                                           device=self.device).index_fill_(0, slot_index, True)
+                        if need_temp:
+                            # The noise is drawn per position of the (B, V) matrix, so
+                            # the A rows go into their slots' rows first: the sampled
+                            # tokens then equal the masked path's.
+                            last = torch.zeros((B, logits_a.shape[-1]), dtype=logits_a.dtype,
+                                               device=self.device).index_put((slot_index,),
+                                                                             logits_a[rows])
+                            t0 = samp(last)
+                        else:
+                            t0 = toks.index_put((slot_index,), greedy_a[rows].to(toks.dtype))
+                    else:
+                        with self._without_auto_ragged():
+                            cache, last = self.prefill(cache, admit_ids, admit_lengths,
+                                                       slot_mask=admit_mask)
+                        mask = self._tensor(admit_mask, torch.bool)
+                        t0 = samp(last)
+                    toks = torch.where(mask, t0, toks)
+                    emitted0 = mask.to(torch.int32)
+                    done = (done & ~mask) | (mask & eos_on & (t0 == eos))
+                    if admit_budgets is not None:
+                        budgets = torch.where(mask, self._tensor(admit_budgets, torch.int32),
+                                              budgets)
+            else:
+                t0 = toks
+                emitted0 = torch.zeros_like(budgets)
+            done = done | (emitted0 >= budgets) | (cache["lengths"] >= self.max_seq)
+            emitted = torch.zeros_like(budgets)
+            out = []
+            for _ in range(steps):
+                with tracing.span("engine.decode"):
+                    act = ~done  # a frozen slot stays frozen for the rest of the round
+                    logits = self._decode_step(cache, toks, act)
+                    nxt = samp(logits)
+                    # A frozen slot emits padding, which the host drops by ``emitted``.
+                    nxt = torch.where(done, torch.where(eos_on, eos.clamp(min=0), toks), nxt)
+                    emitted = emitted + act.to(torch.int32)
+                    done = (done | (act & eos_on & (nxt == eos)) | (emitted0 + emitted >= budgets)
+                            | (cache["lengths"] >= self.max_seq))
+                    out.append(nxt)
+                    toks = nxt
+            cols = [t0[:, None], *(o[:, None] for o in out), emitted[:, None], done[:, None],
+                    cache["lengths"][:, None]]
+            blob = torch.cat([c.to(torch.int32) for c in cols], dim=1)
+            return cache, blob, (toks, done, budgets - emitted0 - emitted)
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
                  sampling: SamplingParams = SamplingParams(),

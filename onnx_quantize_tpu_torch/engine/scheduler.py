@@ -35,6 +35,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from onnx_quantize_tpu_torch import tracing
 from onnx_quantize_tpu_torch.engine.engine import InferenceEngine
 from onnx_quantize_tpu_torch.engine.sampling import (
     SamplingParams,
@@ -110,7 +111,7 @@ class ContinuousBatchingScheduler:
         # emitted / slot_steps is the occupancy of the fixed-batch decode.
         self.stats = {
             "rounds": 0, "slot_steps": 0, "emitted": 0,
-            "admit_rounds": 0, "planned_admits": 0, "boundary_admits": 0,
+            "admit_rounds": 0, "planned_admits": 0,
         }
 
     def register_prefix(self, tokens: list[int]) -> int:
@@ -288,6 +289,8 @@ class ContinuousBatchingScheduler:
         else:
             ids, lengths, mask = self._build_admit(admitted)
             kw = dict(admit_ids=ids, admit_lengths=lengths, admit_mask=mask)
+        tracing.count("sched.admit_tokens", sum(max(len(r.prompt), 1) for _, r in admitted))
+        tracing.count("sched.admit_padded_tokens", ids.size)
         if with_budgets:
             budgets = np.zeros((self.engine.max_batch,), np.int32)
             for slot_id, request in admitted:
@@ -319,27 +322,28 @@ class ContinuousBatchingScheduler:
         later round's admissions from the budgets, and every round of the
         group is queued from the device carry before any blob is read.
         """
-        admitted = self._assign_slots()
-        prefixed = [a for a in admitted if a[1].use_prefix]
-        if prefixed:
-            # Prefix admissions run as their own masked prefill call; the
-            # serve round takes only plain admissions.
-            self._prefill_group(prefixed, prefixed=True)
-            admitted = [a for a in admitted if not a[1].use_prefix and not a[1].done]
-        occupied = [(i, r) for i, r in enumerate(self.slots) if r is not None]
-        if not occupied:
-            return self._drain_completed()
+        with tracing.span("sched.plan"):
+            admitted = self._assign_slots()
+            prefixed = [a for a in admitted if a[1].use_prefix]
+            if prefixed:
+                # Prefix admissions run as their own masked prefill call; the
+                # serve round takes only plain admissions.
+                self._prefill_group(prefixed, prefixed=True)
+                admitted = [a for a in admitted if not a[1].use_prefix and not a[1].done]
+            occupied = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+            if not occupied:
+                return self._drain_completed()
 
-        B = self.engine.max_batch
-        chunk = self.chunk
-        active = np.array([s is not None for s in self.slots])
-        budgets = np.zeros((B,), np.int32)
-        for slot_id, request in occupied:
-            budgets[slot_id] = request.max_new_tokens - len(request.output)
-        occupant: dict[int, Request] = dict(occupied)
-        eos, arrays = self._slot_arrays(occupant)
+            B = self.engine.max_batch
+            chunk = self.chunk
+            active = np.array([s is not None for s in self.slots])
+            budgets = np.zeros((B,), np.int32)
+            for slot_id, request in occupied:
+                budgets[slot_id] = request.max_new_tokens - len(request.output)
+            occupant: dict[int, Request] = dict(occupied)
+            eos, arrays = self._slot_arrays(occupant)
 
-        admit_kw = self._admit_kwargs(admitted, with_budgets=False) if admitted else {}
+            admit_kw = self._admit_kwargs(admitted, with_budgets=False) if admitted else {}
         self.cache, blob, carry = self.engine.serve_chunk(
             self.cache, self.next_tokens, steps=chunk, active=active, budgets=budgets, eos=eos,
             sampling_arrays=arrays, variant=self._variant, generator=self.generator, **admit_kw)
@@ -354,27 +358,28 @@ class ContinuousBatchingScheduler:
                     for s, _ in occupied}
 
         for _ in range(self.pipeline - 1):
-            live = any(rem > 0 for rem in pred_rem.values())
-            plain_queue = bool(self.queue) and not self.queue[0].use_prefix
-            if not live and not plain_queue:
-                break
-            new_admits: list[tuple[int, Request]] = []
-            if plain_queue:
-                for s in range(B):
-                    if not (self.queue and not self.queue[0].use_prefix):
-                        break
-                    if s in occupant and pred_rem.get(s, 0) > 0:
-                        continue  # still (possibly) running
-                    request = self.queue.popleft()
-                    request.t_admitted = time.monotonic()
-                    occupant[s] = request
-                    new_admits.append((s, request))
-                    logger.debug("planned admission of request %d into slot %d",
-                                 request.request_id, s)
-            if not live and not new_admits:
-                break
-            eos, arrays = self._slot_arrays(occupant)
-            admit_kw = self._admit_kwargs(new_admits, with_budgets=True) if new_admits else {}
+            with tracing.span("sched.plan"):
+                live = any(rem > 0 for rem in pred_rem.values())
+                plain_queue = bool(self.queue) and not self.queue[0].use_prefix
+                if not live and not plain_queue:
+                    break
+                new_admits: list[tuple[int, Request]] = []
+                if plain_queue:
+                    for s in range(B):
+                        if not (self.queue and not self.queue[0].use_prefix):
+                            break
+                        if s in occupant and pred_rem.get(s, 0) > 0:
+                            continue  # still (possibly) running
+                        request = self.queue.popleft()
+                        request.t_admitted = time.monotonic()
+                        occupant[s] = request
+                        new_admits.append((s, request))
+                        logger.debug("planned admission of request %d into slot %d",
+                                     request.request_id, s)
+                if not live and not new_admits:
+                    break
+                eos, arrays = self._slot_arrays(occupant)
+                admit_kw = self._admit_kwargs(new_admits, with_budgets=True) if new_admits else {}
             self.cache, blob, carry = self.engine.serve_chunk(
                 self.cache, None, steps=chunk, eos=eos, sampling_arrays=arrays,
                 variant=self._variant, generator=self.generator, carry=carry, **admit_kw)
@@ -390,30 +395,31 @@ class ContinuousBatchingScheduler:
         self.stats["rounds"] += len(blobs)
         self.stats["slot_steps"] += len(blobs) * B * chunk
         self.stats["admit_rounds"] += sum(1 for a in admits_per_round if a)
-        self.stats["boundary_admits"] += len(admits_per_round[0])
         # One host fetch for the whole group: the blobs are stacked on the device.
-        fetched = torch.stack(blobs).cpu().numpy()
-        for round_idx, blob in enumerate(fetched):
-            t0 = blob[:, 0]
-            out = blob[:, 1: 1 + chunk]
-            emitted = blob[:, -3]
-            done = blob[:, -2].astype(bool)
-            self.lengths = blob[:, -1].astype(np.int32)
-            round_admits = admits_per_round[round_idx]
-            self.stats["emitted"] += int(emitted.sum()) + len(round_admits)
-            for slot_id, request in occupant_per_round[round_idx].items():
-                if request.done:
-                    continue
-                if slot_id in round_admits:
-                    request.output.append(int(t0[slot_id]))
-                request.output.extend(int(t) for t in out[slot_id, : emitted[slot_id]])
-                if request.output:
-                    self.next_tokens[slot_id] = request.output[-1]
-                if done[slot_id]:
-                    self._finish_request(request)
-        for s in range(B):
-            request = occupant.get(s)
-            self.slots[s] = request if request is not None and not request.done else None
+        with tracing.span("sched.fetch"):
+            fetched = torch.stack(blobs).cpu().numpy()
+        with tracing.span("sched.unpack"):
+            for round_idx, blob in enumerate(fetched):
+                t0 = blob[:, 0]
+                out = blob[:, 1: 1 + chunk]
+                emitted = blob[:, -3]
+                done = blob[:, -2].astype(bool)
+                self.lengths = blob[:, -1].astype(np.int32)
+                round_admits = admits_per_round[round_idx]
+                self.stats["emitted"] += int(emitted.sum()) + len(round_admits)
+                for slot_id, request in occupant_per_round[round_idx].items():
+                    if request.done:
+                        continue
+                    if slot_id in round_admits:
+                        request.output.append(int(t0[slot_id]))
+                    request.output.extend(int(t) for t in out[slot_id, : emitted[slot_id]])
+                    if request.output:
+                        self.next_tokens[slot_id] = request.output[-1]
+                    if done[slot_id]:
+                        self._finish_request(request)
+            for s in range(B):
+                request = occupant.get(s)
+                self.slots[s] = request if request is not None and not request.done else None
         return self._drain_completed()
 
     # -- per-step mode (chunk == 1) ------------------------------------------

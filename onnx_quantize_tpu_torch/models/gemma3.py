@@ -47,6 +47,7 @@ import math
 import numpy as np
 import torch
 
+from onnx_quantize_tpu_torch import tracing
 from onnx_quantize_tpu_torch.core.enums import QFormat
 from onnx_quantize_tpu_torch.engine.kv_cache import QuantizedKV
 from onnx_quantize_tpu_torch.nn.layers import Embedding, RMSNorm, apply_rope
@@ -333,6 +334,12 @@ class Gemma3MLP(Module):
         self.down_rot: np.ndarray | None = None
 
     def forward(self, params, x, ctx=None):
+        with tracing.span("model.mlp"):
+            return self._forward(params, x, ctx)
+
+    def _forward(self, params, x, ctx):
+        """The MLP without its span: an MoE layer's experts and shared
+        expert run it inside the MoE's own spans."""
         if "_fused_gate_up" in params:
             w = params["_fused_gate_up"]["w"]
             dn = params["down_proj"].get("w")
@@ -598,8 +605,16 @@ class Gemma3MoEMLP(Module):
         return out.to(x.dtype)
 
     def forward(self, params, x, ctx=None):
+        with tracing.span("model.router"):
+            top_p, top_i = self._routing(params, x, ctx)
+        with tracing.span("model.experts"):
+            out = self._experts(params, x, top_p, top_i, ctx)
+        return self._shared_out(params, x, out, ctx)
+
+    def _experts(self, params, x, top_p, top_i, ctx):
+        """The routed experts' weighted sum in the stream dtype: ragged,
+        fused or the stacked (or unstacked) loop."""
         cfg = self.cfg
-        top_p, top_i = self._routing(params, x, ctx)
         stacked = params.get("_stacked_experts")
         fused = params.get("_fused_experts")
         source = stacked if stacked is not None else fused
@@ -607,11 +622,10 @@ class Gemma3MoEMLP(Module):
         if self._ragged_ok(source, tuple(x.shape), x.device, from_fused):
             if from_fused:
                 source = self._fused_to_stacked_dense(fused, self.inter)
-            out = self._experts_ragged(source, x, top_p, top_i).to(x.dtype)
-            return self._shared_out(params, x, out, ctx)
+            return self._experts_ragged(source, x, top_p, top_i).to(x.dtype)
         combine = self._combine_weights(top_p, top_i, cfg.num_experts)
         if fused is not None:
-            return self._shared_out(params, x, self._experts_fused(fused, x, combine), ctx)
+            return self._experts_fused(fused, x, combine)
         out = torch.zeros((*x.shape[:-1], cfg.hidden_size), dtype=torch.float32,
                           device=x.device)
         if stacked is not None:
@@ -624,21 +638,22 @@ class Gemma3MoEMLP(Module):
             if stacked is not None:
                 ye = stacked_expert_mlp(stacked, e, xe, self.activation)
             else:
-                ye = self.experts[e](params[f"experts.{e}"], xe, ctx=ctx)
+                ye = self.experts[e]._forward(params[f"experts.{e}"], xe, ctx)
             out = out + ye.to(torch.float32) * w_e[..., None]
         if stacked is not None and self.ep_axis is not None:
             from onnx_quantize_tpu_torch.parallel.comm import all_reduce
 
             out = all_reduce(out, self.ep_axis)
-        return self._shared_out(params, x, out.to(x.dtype), ctx)
+        return out.to(x.dtype)
 
     def _shared_out(self, params, x, out, ctx):
         if not self.cfg.shared_expert_size:
             return out
-        gate = self.shared_gate(params["shared_gate"], x, ctx=ctx)
-        shared = self.shared(params["shared"], x, ctx=ctx)
-        return out + (torch.sigmoid(gate.to(torch.float32))
-                      * shared.to(torch.float32)).to(x.dtype)
+        with tracing.span("model.shared_expert"):
+            gate = self.shared_gate(params["shared_gate"], x, ctx=ctx)
+            shared = self.shared._forward(params["shared"], x, ctx)
+            return out + (torch.sigmoid(gate.to(torch.float32))
+                          * shared.to(torch.float32)).to(x.dtype)
 
 
 class Gemma3Block(Module):
@@ -657,8 +672,9 @@ class Gemma3Block(Module):
 
     def forward(self, params, x, positions, mask, kv_write=None, use_flash="auto", ctx=None):
         h = self.input_norm(params["input_norm"], x)
-        h = self.attn(params["attn"], h, positions, mask, kv_write=kv_write, use_flash=use_flash,
-                      ctx=ctx)
+        with tracing.span("model.attention"):
+            h = self.attn(params["attn"], h, positions, mask, kv_write=kv_write,
+                          use_flash=use_flash, ctx=ctx)
         if self.sandwich:
             h = self.post_attn_norm(params["post_attn_norm"], h)
         x = x + h
@@ -780,12 +796,13 @@ class Gemma3(Module):
     def logits(self, params, hidden, ctx=None):
         """The lm_head over final hidden states; under TP, the vocab-split
         logits all-gathered (the only gather of the TP forward)."""
-        logits = self.lm_head(params["lm_head"], hidden, ctx=ctx)
-        if self._tp_gather_logits is not None:
-            from onnx_quantize_tpu_torch.parallel.comm import all_gather
+        with tracing.span("model.lm_head"):
+            logits = self.lm_head(params["lm_head"], hidden, ctx=ctx)
+            if self._tp_gather_logits is not None:
+                from onnx_quantize_tpu_torch.parallel.comm import all_gather
 
-            logits = all_gather(logits, self._tp_gather_logits, dim=logits.ndim - 1)
-        return logits
+                logits = all_gather(logits, self._tp_gather_logits, dim=logits.ndim - 1)
+            return logits
 
     def tp_localize(self, tp: int, axis: str = "model"):
         """Per-rank model and sharding rules for whole-model TP.

@@ -130,7 +130,9 @@ def test_scheduler_tokens_equal_jax(models, workload, mode):
     want, jsched = _run(models, reqs, jax_side=True, **mode)
     assert got == want
     if mode["chunk"] > 1:
-        assert sched.stats == jsched.stats
+        # boundary_admits is counted by the JAX scheduler only: nothing reads it.
+        want_stats = {k: v for k, v in jsched.stats.items() if k != "boundary_admits"}
+        assert sched.stats == want_stats
         np.testing.assert_array_equal(sched.lengths, np.asarray(jsched.lengths))
     if mode.get("kv_quant", True):
         # The port's relation: every mode gives the per-step loop's tokens.
