@@ -11,9 +11,10 @@ Capturing the decode step in a CUDA graph is later work.
 
 ``serve_chunk`` is one round of the continuous-batching scheduler
 (``engine/scheduler.py``): an optional admission (a masked prefill of the
-whole batch, or a narrow one of the admitted rows only), per-slot first-token
-sampling, then ``steps`` decode steps with per-slot sampling, EOS, budget and
-capacity freezes. It is an eager loop too, with no host sync inside it, and
+whole batch, or a narrow one of the admitted rows only, as one forward or
+as length-matched sub-forwards), per-slot first-token sampling, then
+``steps`` decode steps with per-slot sampling, EOS, budget and capacity
+freezes. It is an eager loop too, with no host sync inside it, and
 returns one packed int32 blob that stays on the device.
 
 Works with float or quantized params (the Linear sites dispatch to the
@@ -94,6 +95,17 @@ def _device_of(params: dict) -> torch.device:
     return leaf.device
 
 
+def _rows_independent(tree) -> bool:
+    """Whether a forward's rows are computed independently of each other:
+    false where any site quantizes its input activations, since a dynamic
+    int8 scale is one per tensor, taken over every row of the forward."""
+    if isinstance(tree, dict):
+        return all(_rows_independent(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_rows_independent(v) for v in tree)
+    return not isinstance(tree, QTensor) or tree.meta.input_quant.mode == "none"
+
+
 class InferenceEngine:
     """Prefill/decode engine on the device that holds ``params``."""
 
@@ -155,6 +167,7 @@ class InferenceEngine:
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, quantized=kv_quant,
             bits=kv_bits, dtype=dtype,
         )
+        self.rows_independent = _rows_independent(self.params)
 
     def _init_mesh(self, model, params, max_batch, max_seq, kv_quant, dtype, fused_attention,
                    mlp_megakernel, data_axis, model_axis):
@@ -180,6 +193,7 @@ class InferenceEngine:
         self.max_batch, self.max_seq, self.dtype = max_batch, max_seq, dtype
         self.params, self.device = self.local.params, self.local.device
         self.cache_cfg = self.local.cache_cfg
+        self.rows_independent = self.local.rows_independent
         lb = self.local.max_batch
         self._rows = slice(mesh.coords[data_axis] * lb, (mesh.coords[data_axis] + 1) * lb)
         self.local._noise_window = (self._rows, max_batch)
@@ -367,25 +381,51 @@ class InferenceEngine:
         """Narrow admission prefill: the forward runs over the A admitted rows
         only, at (A, T_pad), where the masked prefill runs all B.
 
-        ``ids`` (A, T_pad), ``lengths`` (A,) and ``slots`` (A,) are host
-        arrays; the bucket's padding rows carry ``slots = max_batch`` and are
-        dropped on the host (:func:`admitted_rows`): they touch no cache row,
-        length or token. Each layer's K/V rows go into their slots, and the
-        admission's attention reads the fresh rows and nothing of the wide
-        cache (the masked path's extra keys add exact zeros to its softmax).
+        ``ids`` is one (A, T_pad) array, or a sequence of sub-batches
+        (A_i, T_i) whose rows are the consecutive rows of ``lengths`` (A,)
+        and ``slots`` (A,) (host arrays). Each sub-batch runs its own
+        forward, in order on one stream: its inputs are all on the device
+        before the first forward is queued, so the forwards queue with no
+        host copy between them. A bucket's padding rows carry
+        ``slots = max_batch`` and are dropped on the host
+        (:func:`admitted_rows`): they touch no cache row, length or token.
+        Each layer's K/V rows go into their slots, and a forward's attention
+        reads its own fresh rows and nothing of the wide cache (the masked
+        path's extra keys add exact zeros to its softmax).
 
         Returns (logits (A, V), greedy (A,) int32, rows, slot_index): the
         last two are the real rows and their slots, as device index tensors.
         """
-        ids = self._token_ids(ids)
-        A, T = ids.shape
-        if T > self.max_seq:
-            raise ValueError(f"prompt length {T} exceeds max_seq={self.max_seq}")
-        host = np.asarray(lengths)
-        if not ((host >= 1) & (host <= T)).all():
-            raise ValueError(f"lengths must lie in [1, {T}]")
+        pieces = list(ids) if isinstance(ids, (list, tuple)) else [ids]
+        host, slots = np.asarray(lengths), np.asarray(slots)
+        subs, r0 = [], 0
+        for piece in pieces:
+            piece = self._token_ids(piece)
+            a, T = piece.shape
+            if T > self.max_seq:
+                raise ValueError(f"prompt length {T} exceeds max_seq={self.max_seq}")
+            if not ((host[r0:r0 + a] >= 1) & (host[r0:r0 + a] <= T)).all():
+                raise ValueError(f"lengths must lie in [1, {T}]")
+            subs.append((piece, *admitted_rows(slots[r0:r0 + a], self.max_batch, self.device)))
+            r0 += a
+        if r0 != len(host) or r0 != len(slots):
+            raise ValueError(f"{r0} rows of ids for {len(host)} lengths and {len(slots)} slots")
         rows, slot_index = admitted_rows(slots, self.max_batch, self.device)
-        lengths = self._tensor(lengths, torch.int32)
+        lengths = self._tensor(host, torch.int32)
+        logits, r0 = [], 0
+        for piece, sub_rows, sub_slots in subs:
+            logits.append(self._admit_forward(cache, piece, lengths[r0:r0 + piece.shape[0]],
+                                              sub_rows, sub_slots))
+            r0 += piece.shape[0]
+        logits = logits[0] if len(logits) == 1 else torch.cat(logits)
+        cache["lengths"] = cache["lengths"].index_put((slot_index,), lengths[rows])
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32), rows, slot_index
+
+    def _admit_forward(self, cache: dict, ids, lengths, rows, slot_index):
+        """One narrow forward over device ``ids`` (A, T): writes the K/V rows
+        of ``rows`` into ``slot_index`` and returns the last-token logits
+        (A, V)."""
+        A, T = ids.shape
         positions = torch.arange(T, dtype=torch.int32, device=self.device)[None, :].expand(A, T)
         kv_positions = torch.where(positions < lengths[:, None], positions, _FAR)
 
@@ -396,10 +436,8 @@ class InferenceEngine:
             # What the masked path reads back: the cache's dtype, then the engine's.
             return tuple(t.to(self.cache_cfg.dtype).to(self.dtype) for t in fresh)
 
-        logits = self._forward(cache, ids, positions, kv_positions, None, last_lengths=lengths,
-                               kv_write=kv_write)[:, 0]
-        cache["lengths"] = cache["lengths"].index_put((slot_index,), lengths[rows])
-        return logits, torch.argmax(logits, dim=-1).to(torch.int32), rows, slot_index
+        return self._forward(cache, ids, positions, kv_positions, None, last_lengths=lengths,
+                             kv_write=kv_write)[:, 0]
 
     def decode(self, cache: dict, tokens, active=None):
         """One decode step for every active slot; returns (cache, logits (B, V))."""
@@ -544,7 +582,10 @@ class InferenceEngine:
         Admission: ``admit_ids`` (B, T_pad) with ``admit_lengths`` (B,) and
         ``admit_mask`` (B,) runs the masked prefill of the whole batch;
         ``admit_ids`` (A, T_pad) with ``admit_lengths`` (A,) and
-        ``admit_slots`` (A,) the narrow one (padding rows carry max_batch).
+        ``admit_slots`` (A,) the narrow one (padding rows carry max_batch);
+        ``admit_ids`` as a sequence of (A_i, T_i) sub-batches, over the
+        consecutive rows of ``admit_lengths`` and ``admit_slots``, runs the
+        narrow one as one forward a sub-batch (:meth:`_admit_prefill`).
         ``admit_budgets`` (B,) overrides the admitted slots' budgets (a
         planned admission into a slot whose old budget is in the carry).
 

@@ -18,6 +18,12 @@ Two modes:
   its slot until the round ends, but stops writing KV and advancing its
   length the moment it emits EOS, spends its budget or fills the cache.
 
+A serve-mode admission of at most ``max_batch // 2`` rows is narrow: it
+runs only the admitted rows. Over a weight-only tree it runs them as
+length-matched sub-forwards (``plan_admission``), so a short prompt is not
+padded to the longest one of its group; a tree that quantizes activations
+keeps one forward, whose dynamic int8 scales are taken over all its rows.
+
 With ``pipeline > 1`` (serve mode) up to that many rounds are queued from the
 device-resident carry before any blob is read, and admissions into slots
 that the budgets say will be free are planned on the host, so a round can
@@ -45,7 +51,60 @@ from onnx_quantize_tpu_torch.engine.sampling import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Request", "ContinuousBatchingScheduler"]
+__all__ = ["Request", "ContinuousBatchingScheduler", "plan_admission", "ADMIT_M_FLOOR"]
+
+# The tokens (rows x padded width) below which an admission forward stops
+# getting proportionally cheaper: a narrow admission is planned as if each
+# of its forwards cost at least this many tokens. Measured on an H100 at
+# Qwen1.5-MoE-A2.7B's widths (W4 g64, fused experts, int8 cache, max_batch
+# 64; PERF.md section 6): one narrow forward of M = 128, 256, 512, 1024,
+# 2048 tokens took 0.536, 0.442, 0.377, 0.362, 0.364 ms a token, flat from
+# 1024 on; a forward's launches also take the host ~60 ms whatever its M.
+# Sampled admissions of 4-16 chat prompts planned at floors of 256-2048 ran
+# fastest at 1024 (within 0.3% of the best where another floor won).
+ADMIT_M_FLOOR = 1024
+
+
+def _bucket(n: int, max_seq: int) -> int:
+    """A prompt's padded width: its length bucketed to a multiple of 64 (at
+    most max_seq), so the kernels see a few shapes."""
+    n = max(n, 1)
+    return max(min(-(-n // 64) * 64, max_seq), n)
+
+
+def _rows_bucket(n: int) -> int:
+    """The rows of an admission run as one forward: a power of two."""
+    return 1 << (n - 1).bit_length()
+
+
+def plan_admission(lengths, max_seq: int) -> list[list[int]]:
+    """The narrow admission's forwards, for prompts of ``lengths``: lists of
+    indices into ``lengths``, each a sub-batch of consecutive prompts in
+    length order (the shortest first), that together minimise the sum of
+    ``max(rows x padded width, ADMIT_M_FLOOR)`` over the forwards, the fewest
+    forwards among equal sums. A sub-batch runs its exact rows at its longest
+    prompt's bucket; the whole admission as one forward keeps its rows
+    bucketed to a power of two, as the single forward always ran, and is
+    returned in the given order. Host arithmetic only: an exact dynamic
+    programme over the sorted prompts, O(n^2)."""
+    n = len(lengths)
+    order = sorted(range(n), key=lambda i: (max(lengths[i], 1), i))
+    width = [_bucket(lengths[i], max_seq) for i in order]
+    best = [(0, 0)] * (n + 1)  # (cost, forwards) of the plan of order[:j]
+    cut = [0] * (n + 1)
+    for j in range(1, n + 1):
+        for i in range(j):
+            rows = _rows_bucket(n) if (i, j) == (0, n) else j - i
+            cost = (best[i][0] + max(rows * width[j - 1], ADMIT_M_FLOOR), best[i][1] + 1)
+            if i == 0 or cost < best[j]:
+                best[j], cut[j] = cost, i
+    if cut[n] == 0:
+        return [list(range(n))]
+    plan, j = [], n
+    while j:
+        plan.append(order[cut[j]:j])
+        j = cut[j]
+    return plan[::-1]
 
 
 @dataclasses.dataclass
@@ -83,7 +142,8 @@ class ContinuousBatchingScheduler:
         # a slot freed early (EOS, capacity) waits for the group's end.
         self.pipeline = pipeline
         # Narrow admission (serve mode): groups of at most max_batch / 2
-        # forward only their rows, at (A, T_pad), instead of the whole batch.
+        # forward only their rows instead of the whole batch, as one forward
+        # at (A, T_pad) or as length-matched sub-forwards (plan_admission).
         # The same tokens, less admission compute. Mesh engines always admit
         # masked, as the JAX package's.
         self.narrow_admit = True
@@ -180,10 +240,8 @@ class ContinuousBatchingScheduler:
         return admitted
 
     def _t_pad(self, admitted) -> int:
-        """The admission's padded width: the longest prompt bucketed to a
-        multiple of 64 (at most max_seq), so the kernels see a few shapes."""
-        longest = max(max(len(r.prompt), 1) for _, r in admitted)
-        return max(min(-(-longest // 64) * 64, self.engine.max_seq), longest)
+        """The admission's padded width: the longest prompt's bucket."""
+        return _bucket(max(len(r.prompt) for _, r in admitted), self.engine.max_seq)
 
     def _build_admit(self, admitted, offset: int = 0):
         """Padded (ids, lengths, mask) for a masked prefill of the batch.
@@ -200,23 +258,33 @@ class ContinuousBatchingScheduler:
         return ids, lengths, mask
 
     def _build_admit_narrow(self, admitted):
-        """(ids (A, T_pad), lengths (A,), slots (A,)) for the narrow
-        admission prefill. A is bucketed to a power of two; padding rows
-        carry ``slot = max_batch``, which the engine drops on the host."""
+        """(ids, lengths (A,), slots (A,)) for the narrow admission prefill.
+
+        Where the engine's rows are independent (no site quantizes its
+        activations), the admission runs as :func:`plan_admission`'s
+        forwards: ``ids`` is then a list of (A_i, T_i) sub-batches over the
+        consecutive rows of ``lengths`` and ``slots``. Otherwise, and where
+        the plan is one forward, ``ids`` is one (A, T_pad) array whose rows
+        are bucketed to a power of two; padding rows carry
+        ``slot = max_batch``, which the engine drops on the host."""
         B = self.engine.max_batch
-        A = 1
-        while A < len(admitted):
-            A *= 2
-        A = min(A, B)
-        ids = np.zeros((A, self._t_pad(admitted)), np.int32)
-        lengths = np.ones((A,), np.int32)
-        slots = np.full((A,), B, np.int32)
-        for i, (slot_id, request) in enumerate(admitted):
-            ids[i, : len(request.prompt)] = request.prompt
-            lengths[i] = max(len(request.prompt), 1)
-            slots[i] = slot_id
-            self.lengths[slot_id] = lengths[i]
-        return ids, lengths, slots
+        plan = (plan_admission([len(r.prompt) for _, r in admitted], self.engine.max_seq)
+                if self.engine.rows_independent else [list(range(len(admitted)))])
+        pieces, lengths, slots = [], [], []
+        for sub in plan:
+            group = [admitted[i] for i in sub]
+            rows = min(_rows_bucket(len(group)), B) if len(plan) == 1 else len(group)
+            ids = np.zeros((rows, self._t_pad(group)), np.int32)
+            for i, (slot_id, request) in enumerate(group):
+                ids[i, : len(request.prompt)] = request.prompt
+                lengths.append(max(len(request.prompt), 1))
+                slots.append(slot_id)
+                self.lengths[slot_id] = lengths[-1]
+            lengths += [1] * (rows - len(group))
+            slots += [B] * (rows - len(group))
+            pieces.append(ids)
+        return (pieces[0] if len(plan) == 1 else pieces,
+                np.array(lengths, np.int32), np.array(slots, np.int32))
 
     def _prefill_group(self, admitted, prefixed: bool) -> None:
         """One masked prefill call for an admission group, and its first tokens."""
@@ -289,8 +357,10 @@ class ContinuousBatchingScheduler:
         else:
             ids, lengths, mask = self._build_admit(admitted)
             kw = dict(admit_ids=ids, admit_lengths=lengths, admit_mask=mask)
+        pieces = ids if isinstance(ids, list) else [ids]
         tracing.count("sched.admit_tokens", sum(max(len(r.prompt), 1) for _, r in admitted))
-        tracing.count("sched.admit_padded_tokens", ids.size)
+        tracing.count("sched.admit_padded_tokens", sum(p.size for p in pieces))
+        tracing.count("sched.admit_forwards", len(pieces))
         if with_budgets:
             budgets = np.zeros((self.engine.max_batch,), np.int32)
             for slot_id, request in admitted:

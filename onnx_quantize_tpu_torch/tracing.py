@@ -55,6 +55,7 @@ TIMED = ("engine.serve_chunk", "engine.admit", "engine.decode", "model.experts")
 COUNTERS = (
     "sched.admit_tokens",         # prompt tokens admitted
     "sched.admit_padded_tokens",  # tokens the admission forwards run
+    "sched.admit_forwards",       # forwards the admissions run
 )
 _SPAN_SET, _TIMED_SET, _COUNTER_SET = frozenset(SPANS), frozenset(TIMED), frozenset(COUNTERS)
 

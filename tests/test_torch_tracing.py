@@ -3,9 +3,9 @@
 serve-mode step with an admission records the declared spans, nested
 scheduler > round > admission or decode step > model boundary (the tiny MoE
 model every span but ``model.mlp``, the tiny dense model ``model.mlp`` and
-no MoE span); the admission counters equal the prompts and the padded
-shape; served tokens do not depend on the profiler; device-stream times are
-summed per timed span."""
+no MoE span); the admission counters equal the prompts, the padded shape
+and the forwards, one or the plan's; served tokens do not depend on the
+profiler; device-stream times are summed per timed span."""
 
 import re
 import time
@@ -24,6 +24,7 @@ from onnx_quantize_tpu_torch.engine import (
     SamplingParams,
     prepare_kernel_scales,
 )
+from onnx_quantize_tpu_torch.engine.scheduler import ADMIT_M_FLOOR, plan_admission
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
 from onnx_quantize_tpu_torch.models.moe import (
     fuse_moe_experts,
@@ -176,7 +177,29 @@ def test_admission_counters(moe, narrow):
     rows = 4 if narrow else B  # three admitted rows bucketed to a power of two
     t_pad = 64  # the longest prompt (17) bucketed to 64, at most max_seq
     assert tracing.counts() == {"sched.admit_tokens": sum(len(p) for p in PROMPTS),
-                                "sched.admit_padded_tokens": rows * t_pad}
+                                "sched.admit_padded_tokens": rows * t_pad,
+                                "sched.admit_forwards": 1}
+
+
+def test_split_admission_counters(moe):
+    """An admission whose prompts spread over several buckets runs the plan's
+    sub-forwards: the padded tokens are theirs, exact rows at each one's
+    longest prompt's bucket."""
+    model, tree = moe
+    lengths = [2 * ADMIT_M_FLOOR - 3, 10, ADMIT_M_FLOOR - 20, 12, 2 * ADMIT_M_FLOOR - 40, 11]
+    max_seq = 2 * ADMIT_M_FLOOR + 64
+    plan = plan_admission(lengths, max_seq)
+    assert len(plan) > 1
+    engine = InferenceEngine(model, tree, max_batch=16, max_seq=max_seq, kv_quant=True)
+    sched = ContinuousBatchingScheduler(engine, chunk=2)
+    for n in lengths:
+        sched.submit([3] * n, max_new_tokens=2)
+    with profile(activities=[ProfilerActivity.CPU]):
+        sched.step()
+    padded = sum(len(sub) * -(-max(lengths[i] for i in sub) // 64) * 64 for sub in plan)
+    assert tracing.counts() == {"sched.admit_tokens": sum(lengths),
+                                "sched.admit_padded_tokens": padded,
+                                "sched.admit_forwards": len(plan)}
 
 
 def test_served_tokens_do_not_depend_on_the_profiler(moe):
