@@ -52,10 +52,13 @@ import torch
 from onnx_quantize_tpu_torch import tracing
 from onnx_quantize_tpu_torch.engine.kv_cache import (
     KVCacheConfig,
+    LatentKV,
     admitted_rows,
     init_cache,
+    prefix_length,
     read_kv,
     read_kv_quantized,
+    with_prefix,
     write_kv,
     write_kv_rows,
 )
@@ -132,11 +135,15 @@ class InferenceEngine:
             raise ValueError(
                 f"kv_quant must be False, True/'int8', or 'int4', got {kv_quant!r}"
             )
+        latent = cfg.kv_lora_rank > 0
+        if latent and kv_bits != 8:
+            raise ValueError(f"a latent cache is float or int8, got kv_quant={kv_quant_arg!r}")
         # Flash decode over the int8 cache (ops/kernels/flash_decode.py) is
         # opt-in, as in the JAX package, whose default was set on a TPU; the
-        # H100's own comparison is in PERF.md.
+        # H100's own comparison is in PERF.md. It reads per-head K/V rows:
+        # a latent cache has none.
         fusable = (
-            kv_quant and kv_bits == 8
+            kv_quant and kv_bits == 8 and not latent
             and cfg.head_dim % 128 == 0 and max_seq % 128 == 0
         )
         self._fused_attn = fused_attention != "auto" and bool(fused_attention)
@@ -166,6 +173,7 @@ class InferenceEngine:
             num_layers=cfg.num_layers, batch=max_batch, max_seq=max_seq,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, quantized=kv_quant,
             bits=kv_bits, dtype=dtype,
+            latent=(cfg.kv_lora_rank, cfg.qk_rope_head_dim) if latent else None,
         )
         self.rows_independent = _rows_independent(self.params)
 
@@ -288,6 +296,19 @@ class InferenceEngine:
             for mlp in mlps:
                 mlp.use_ragged_prefill = "auto"
 
+    def _count_latent(self, total: torch.Tensor, new: torch.Tensor) -> None:
+        """While tracing, the latent attention's work of a forward: each row
+        with ``new`` (> 0) tokens reads its ``total`` live latent rows, and
+        its new tokens see ``total - new + 1 .. total`` keys; summed over
+        the rows and the layers, as device tensors (no host read)."""
+        if self.cache_cfg.latent is None or not tracing.enabled():
+            return
+        total, new = total.to(torch.int64), new.to(torch.int64)
+        layers = self.cache_cfg.num_layers
+        tracing.count("attn.latent_rows", layers * (total * (new > 0)).sum())
+        tracing.count("attn.latent_pairs",
+                      layers * (new * (total - new) + new * (new + 1) // 2).sum())
+
     @torch.inference_mode()
     def _decode_step(self, cache, tokens, active):
         """tokens: (B,) next input token per slot; active: (B,) bool."""
@@ -301,6 +322,7 @@ class InferenceEngine:
                                    slot, _FAR)
         logits = self._forward(cache, tokens[:, None], positions, kv_positions,
                                active[:, None])
+        self._count_latent(lengths + active.to(torch.int32), active)
         cache["lengths"] = lengths + active.to(torch.int32)
         return logits[:, 0]
 
@@ -331,7 +353,7 @@ class InferenceEngine:
                 return (cache, *(self._gathered(t) for t in out[1:]))
         ids = self._token_ids(ids)
         B, T = ids.shape
-        P = 0 if prefix is None else prefix["k"].shape[1]
+        P = 0 if prefix is None else prefix_length(prefix)
         if T > self.max_seq:
             raise ValueError(f"prompt length {T} exceeds max_seq={self.max_seq}")
         top = min(P + T, self.max_seq)
@@ -362,6 +384,7 @@ class InferenceEngine:
         logits = self._forward(cache, ids, positions, kv_positions,
                                slot_mask[:, None].expand(B, top - P),
                                last_lengths=lengths - P)[:, 0]
+        self._count_latent(lengths, torch.where(slot_mask, lengths - P, 0))
         cache["lengths"] = torch.where(slot_mask, lengths, cache["lengths"])
         if with_tokens:
             return cache, logits, torch.argmax(logits, dim=-1).to(torch.int32)
@@ -369,15 +392,33 @@ class InferenceEngine:
 
     def snapshot_prefix(self, cache: dict, row: int, length: int) -> dict:
         """Rows [0, length) of slot ``row`` as a reusable KV prefix: (L, length,
-        H, D) K/V (and (L, length, H) scales), copies on the device, for
+        H, D) K/V (and (L, length, H) scales), or (L, length, rank + rope)
+        latent rows (and (L, length, 2) scales), copies on the device, for
         :meth:`prefill`'s ``prefix``."""
         if self.mesh is not None:
             raise NotImplementedError("prefix caching is single-chip for now")
-        keys = ["k", "v"] + (["k_scale", "v_scale"] if self.cache_cfg.quantized else [])
-        return {key: cache[key][:, row, :length].clone() for key in keys}
+        return {key: t[:, row, :length].clone() for key, t in cache.items() if key != "lengths"}
 
     @torch.inference_mode()
-    def _admit_prefill(self, cache: dict, ids, lengths, slots):
+    def prefill_prefix(self, tokens) -> dict:
+        """A prompt prefix's cache rows, in :meth:`snapshot_prefix`'s layout:
+        one narrow forward of the prefix alone, into a cache of one row of
+        its length, so no batch of the engine's width runs and no second
+        cache of its size is held."""
+        if self.mesh is not None:
+            raise NotImplementedError("prefix caching is single-chip for now")
+        P = len(tokens)
+        if not 0 < P <= self.max_seq:
+            raise ValueError(f"a prefix of {P} tokens does not fit max_seq={self.max_seq}")
+        one = init_cache(dataclasses.replace(self.cache_cfg, batch=1, max_seq=P), self.device)
+        zero = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        self._admit_forward(one, self._token_ids(np.asarray(tokens)[None]),
+                            self._tensor([P], torch.int32), zero, zero)
+        return {key: t[:, 0] for key, t in one.items() if key != "lengths"}
+
+    @torch.inference_mode()
+    def _admit_prefill(self, cache: dict, ids, lengths, slots, prefix: dict | None = None,
+                       prefixed=None):
         """Narrow admission prefill: the forward runs over the A admitted rows
         only, at (A, T_pad), where the masked prefill runs all B.
 
@@ -393,51 +434,72 @@ class InferenceEngine:
         reads its own fresh rows and nothing of the wide cache (the masked
         path's extra keys add exact zeros to its softmax).
 
+        ``prefixed`` (one flag a sub-batch) marks the sub-batches whose ids
+        are suffixes after ``prefix`` (a :meth:`snapshot_prefix` dict of P
+        rows): their ``lengths`` are totals (P + suffix), the prefix rows go
+        into rows [0, P) of their slots, and their attention reads the
+        prefix's rows before their own.
+
         Returns (logits (A, V), greedy (A,) int32, rows, slot_index): the
         last two are the real rows and their slots, as device index tensors.
         """
         pieces = list(ids) if isinstance(ids, (list, tuple)) else [ids]
+        prefixed = [False] * len(pieces) if prefixed is None else list(prefixed)
+        if len(prefixed) != len(pieces) or (any(prefixed) and prefix is None):
+            raise ValueError("prefixed needs one flag a sub-batch, and a prefix where one is set")
         host, slots = np.asarray(lengths), np.asarray(slots)
         subs, r0 = [], 0
-        for piece in pieces:
+        for piece, pre in zip(pieces, prefixed):
             piece = self._token_ids(piece)
             a, T = piece.shape
-            if T > self.max_seq:
-                raise ValueError(f"prompt length {T} exceeds max_seq={self.max_seq}")
-            if not ((host[r0:r0 + a] >= 1) & (host[r0:r0 + a] <= T)).all():
-                raise ValueError(f"lengths must lie in [1, {T}]")
-            subs.append((piece, *admitted_rows(slots[r0:r0 + a], self.max_batch, self.device)))
+            P = prefix_length(prefix) if pre else 0
+            if P + T > self.max_seq:
+                raise ValueError(f"prompt length {P + T} exceeds max_seq={self.max_seq}")
+            if not ((host[r0:r0 + a] >= P + 1) & (host[r0:r0 + a] <= P + T)).all():
+                raise ValueError(f"lengths must lie in [{P + 1}, {P + T}]")
+            subs.append((piece, *admitted_rows(slots[r0:r0 + a], self.max_batch, self.device),
+                         prefix if pre else None))
             r0 += a
         if r0 != len(host) or r0 != len(slots):
             raise ValueError(f"{r0} rows of ids for {len(host)} lengths and {len(slots)} slots")
         rows, slot_index = admitted_rows(slots, self.max_batch, self.device)
         lengths = self._tensor(host, torch.int32)
         logits, r0 = [], 0
-        for piece, sub_rows, sub_slots in subs:
+        for piece, sub_rows, sub_slots, pre in subs:
             logits.append(self._admit_forward(cache, piece, lengths[r0:r0 + piece.shape[0]],
-                                              sub_rows, sub_slots))
+                                              sub_rows, sub_slots, pre))
             r0 += piece.shape[0]
         logits = logits[0] if len(logits) == 1 else torch.cat(logits)
         cache["lengths"] = cache["lengths"].index_put((slot_index,), lengths[rows])
         return logits, torch.argmax(logits, dim=-1).to(torch.int32), rows, slot_index
 
-    def _admit_forward(self, cache: dict, ids, lengths, rows, slot_index):
+    def _admit_forward(self, cache: dict, ids, lengths, rows, slot_index,
+                       prefix: dict | None = None):
         """One narrow forward over device ``ids`` (A, T): writes the K/V rows
         of ``rows`` into ``slot_index`` and returns the last-token logits
-        (A, V)."""
+        (A, V). With ``prefix`` (P rows), ``ids`` sit at positions P..P+T-1
+        after it, ``lengths`` are totals, and the prefix rows are written
+        into the slots first."""
         A, T = ids.shape
-        positions = torch.arange(T, dtype=torch.int32, device=self.device)[None, :].expand(A, T)
+        P = 0 if prefix is None else prefix_length(prefix)
+        positions = P + torch.arange(T, dtype=torch.int32, device=self.device)[None, :].expand(A, T)
         kv_positions = torch.where(positions < lengths[:, None], positions, _FAR)
+        if prefix is not None:
+            for key, t in prefix.items():
+                cache[key][:, slot_index, :P] = t[:, None].to(cache[key].dtype)
+            kv_positions = torch.cat([torch.arange(P, dtype=torch.int32, device=self.device)[
+                None, :].expand(A, P), kv_positions], dim=1)
 
         def kv_write(layer, k, v):
             fresh = write_kv_rows(cache, layer, k, v, positions, rows, slot_index)
-            if self.cache_cfg.quantized:
-                return fresh
-            # What the masked path reads back: the cache's dtype, then the engine's.
-            return tuple(t.to(self.cache_cfg.dtype).to(self.dtype) for t in fresh)
+            if not (self.cache_cfg.quantized or isinstance(fresh, LatentKV)):
+                # What the masked path reads back: the cache's dtype, then the engine's.
+                fresh = tuple(t.to(self.cache_cfg.dtype).to(self.dtype) for t in fresh)
+            return fresh if prefix is None else with_prefix(prefix, layer, fresh)
 
-        return self._forward(cache, ids, positions, kv_positions, None, last_lengths=lengths,
-                             kv_write=kv_write)[:, 0]
+        self._count_latent(lengths[rows], lengths[rows] - P)
+        return self._forward(cache, ids, positions, kv_positions, None,
+                             last_lengths=lengths - P, kv_write=kv_write)[:, 0]
 
     def decode(self, cache: dict, tokens, active=None):
         """One decode step for every active slot; returns (cache, logits (B, V))."""
@@ -563,7 +625,8 @@ class InferenceEngine:
     def serve_chunk(self, cache: dict, tokens, steps: int, *, eos, sampling_arrays,
                     variant: tuple[bool, bool, bool], generator: torch.Generator | None = None,
                     active=None, budgets=None, carry=None, admit_ids=None, admit_lengths=None,
-                    admit_mask=None, admit_slots=None, admit_budgets=None):
+                    admit_mask=None, admit_slots=None, admit_budgets=None, admit_prefix=None,
+                    admit_prefixed=None):
         """One serving round: an optional admission, first-token sampling,
         then ``steps`` decode steps with per-slot sampling, EOS, budgets and
         capacity. An eager loop with no host sync inside it: an MoE model's
@@ -585,8 +648,9 @@ class InferenceEngine:
         ``admit_slots`` (A,) the narrow one (padding rows carry max_batch);
         ``admit_ids`` as a sequence of (A_i, T_i) sub-batches, over the
         consecutive rows of ``admit_lengths`` and ``admit_slots``, runs the
-        narrow one as one forward a sub-batch (:meth:`_admit_prefill`).
-        ``admit_budgets`` (B,) overrides the admitted slots' budgets (a
+        narrow one as one forward a sub-batch (:meth:`_admit_prefill`), the
+        sub-batches that ``admit_prefixed`` flags as suffixes after the
+        ``admit_prefix`` rows. ``admit_budgets`` (B,) overrides the admitted slots' budgets (a
         planned admission into a slot whose old budget is in the carry).
 
         A slot freezes (no KV write, no length advance, its output padded
@@ -637,7 +701,8 @@ class InferenceEngine:
                     if admit_slots is not None:
                         with self._without_auto_ragged():
                             logits_a, greedy_a, rows, slot_index = self._admit_prefill(
-                                cache, admit_ids, admit_lengths, admit_slots)
+                                cache, admit_ids, admit_lengths, admit_slots, admit_prefix,
+                                admit_prefixed)
                         mask = torch.zeros((B,), dtype=torch.bool,
                                            device=self.device).index_fill_(0, slot_index, True)
                         if need_temp:

@@ -18,6 +18,15 @@ CUDA would be a device-side assert, so positions are clamped into range and
 the masked rows write back what they read. The narrow admission's
 ``write_kv_rows`` takes its rows' slots from the host instead, and drops the
 padding rows there, before any index is built.
+
+Multi-head latent attention (``KVCacheConfig.latent``, DeepSeek-V2) keeps
+one row a token and layer, shared by every head: the normalized latent
+``c`` (rank wide) and the roped ``k_pe`` side by side, ``latent`` ``(L, B,
+S_max, rank + rope)``. Quantized, the row holds int8 codes with two float32
+scales, ``latent_scale`` ``(L, B, S_max, 2)``: one absmax over ``c`` and one
+over ``k_pe``, since ``c`` is RMS-normalized and ``k_pe`` is not, and one
+absmax over both would coarsen the smaller part. The writers take ``c`` and
+``k_pe`` where they take K and V, and attention reads a :class:`LatentKV`.
 """
 
 from __future__ import annotations
@@ -27,8 +36,9 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["KVCacheConfig", "QuantizedKV", "init_cache", "write_kv", "write_kv_window",
-           "write_kv_rows", "admitted_rows", "read_kv", "read_kv_quantized", "pack_nibbles", "unpack_nibbles"]
+__all__ = ["KVCacheConfig", "QuantizedKV", "LatentKV", "init_cache", "write_kv",
+           "write_kv_window", "write_kv_rows", "admitted_rows", "read_kv", "read_kv_quantized",
+           "with_prefix", "prefix_length", "pack_nibbles", "unpack_nibbles", "quantize_latent"]
 
 
 @dataclasses.dataclass
@@ -53,6 +63,16 @@ class QuantizedKV:
         return unpack_nibbles(self.v) if self.v.dtype == torch.uint8 else self.v
 
 
+@dataclasses.dataclass
+class LatentKV:
+    """A layer's latent rows as attention reads them: ``rows`` (B, S, rank +
+    rope), int8 codes with ``scale`` (B, S, 2) float32 (the ``c`` part's and
+    the ``k_pe`` part's), or float rows with ``scale`` None."""
+
+    rows: torch.Tensor
+    scale: torch.Tensor | None = None
+
+
 @dataclasses.dataclass(frozen=True)
 class KVCacheConfig:
     num_layers: int
@@ -63,11 +83,22 @@ class KVCacheConfig:
     quantized: bool = False  # int8/int4 cache
     bits: int = 8  # 8 or 4 (only read when quantized)
     dtype: torch.dtype = torch.float32  # float cache dtype
+    # (rank, rope): one latent row a token and layer in place of K and V.
+    latent: tuple[int, int] | None = None
 
 
 def init_cache(cfg: KVCacheConfig, device: torch.device | str) -> dict:
     shape = (cfg.num_layers, cfg.batch, cfg.max_seq, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.quantized:
+    if cfg.latent is not None:
+        shape = (cfg.num_layers, cfg.batch, cfg.max_seq, sum(cfg.latent))
+        if cfg.quantized and cfg.bits != 8:
+            raise ValueError(f"a latent cache is float or int8, got {cfg.bits} bits")
+        cache = {"latent": torch.zeros(shape, dtype=torch.int8 if cfg.quantized else cfg.dtype,
+                                       device=device)}
+        if cfg.quantized:
+            cache["latent_scale"] = torch.zeros(shape[:-1] + (2,), dtype=torch.float32,
+                                                device=device)
+    elif cfg.quantized:
         if cfg.bits not in (4, 8):
             raise ValueError(f"KV cache bits must be 4 or 8, got {cfg.bits}")
         if cfg.bits == 4:
@@ -125,6 +156,24 @@ def _quantize_sym4(x: torch.Tensor):
     return pack_nibbles(q), scale
 
 
+def quantize_latent(c: torch.Tensor, k_pe: torch.Tensor):
+    """Latent rows (..., rank + rope) as int8 codes and (..., 2) float32
+    scales: a symmetric absmax / 127 over ``c`` and another over ``k_pe``."""
+    qc, sc = _quantize_sym(c)
+    qp, sp = _quantize_sym(k_pe)
+    return torch.cat([qc, qp], dim=-1), torch.stack([sc, sp], dim=-1)
+
+
+def _latent_rows(cache: dict, c: torch.Tensor, k_pe: torch.Tensor):
+    """Fresh latent rows in the cache's format: {key: rows} and the view
+    attention reads."""
+    if "latent_scale" in cache:
+        rows, scale = quantize_latent(c, k_pe)
+        return {"latent": rows, "latent_scale": scale}, LatentKV(rows, scale)
+    rows = torch.cat([c, k_pe], dim=-1).to(cache["latent"].dtype)
+    return {"latent": rows}, LatentKV(rows)
+
+
 def _quantize_like(cache: dict, x: torch.Tensor):
     """Quantize fresh rows in the cache's own format (int8 or packed int4)."""
     return _quantize_sym4(x) if cache["k"].dtype == torch.uint8 else _quantize_sym(x)
@@ -149,8 +198,12 @@ def _masked_write(buf: torch.Tensor, layer: int, rows: torch.Tensor,
 def write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
              positions: torch.Tensor, mask: torch.Tensor) -> None:
     """Write new K/V rows (B, T, H_kv, D) at ``positions`` (B, T) of ``layer``,
-    in place, for the (b, t) entries where ``mask`` (B, T) is set."""
-    if "k_scale" in cache:
+    in place, for the (b, t) entries where ``mask`` (B, T) is set. A latent
+    cache takes ``c`` and ``k_pe`` (B, T, rank) and (B, T, rope) as k and v."""
+    if "latent" in cache:
+        for key, rows in _latent_rows(cache, k, v)[0].items():
+            _masked_write(cache[key], layer, rows, positions, mask)
+    elif "k_scale" in cache:
         kq, ks = _quantize_like(cache, k)
         vq, vs = _quantize_like(cache, v)
         for key, rows in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
@@ -173,7 +226,7 @@ def write_kv_window(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
     and pack as :func:`write_kv` does. The (B, T) indices are built on the
     device, so nothing waits on the host."""
     B, T = k.shape[:2]
-    S = cache["k"].shape[2]
+    S = cache["latent" if "latent" in cache else "k"].shape[2]
     if T > S:
         raise ValueError(f"a window of {T} rows does not fit a cache of {S}")
     ok = ok & (start + T <= S)
@@ -204,9 +257,16 @@ def write_kv_rows(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
     place (see :func:`admitted_rows`). Returns the fresh rows, all A of them:
     a :class:`QuantizedKV` of the just-quantized codes and scales, or the
     float (k, v). The admission's attention reads these and nothing of the
-    wide cache, over the same int8/int4 values the cache now holds."""
+    wide cache, over the same int8/int4 values the cache now holds. A
+    latent cache takes ``c`` and ``k_pe`` as k and v and returns a
+    :class:`LatentKV`."""
     pos = positions[rows].long()
     dst = slots[:, None].expand_as(pos)
+    if "latent" in cache:
+        fresh, view = _latent_rows(cache, k, v)
+        for key, t in fresh.items():
+            cache[key][layer].index_put_((dst, pos), t[rows])
+        return view
     if "k_scale" in cache:
         kq, ks = _quantize_like(cache, k)
         vq, vs = _quantize_like(cache, v)
@@ -218,13 +278,46 @@ def write_kv_rows(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
     return k, v
 
 
-def read_kv_quantized(cache: dict, layer: int, use_kernel: bool = False) -> QuantizedKV:
-    """The layer's raw int8/int4 K/V and scales (views, no copy)."""
+def with_prefix(prefix: dict, layer: int, fresh):
+    """What an admission's attention reads after a shared prefix: the
+    prefix's rows of ``layer`` (a :meth:`snapshot_prefix` dict, shared by
+    every row of the forward) before the A rows' ``fresh`` ones, in
+    ``fresh``'s form (:class:`QuantizedKV`, :class:`LatentKV` or float
+    ``(k, v)``)."""
+    A = (fresh.rows if isinstance(fresh, LatentKV) else fresh[0] if isinstance(fresh, tuple)
+         else fresh.k).shape[0]
+
+    def cat(key, new):
+        old = prefix[key][layer]
+        return torch.cat([old[None].expand(A, *old.shape).to(new.dtype), new], dim=1)
+
+    if isinstance(fresh, LatentKV):
+        return LatentKV(cat("latent", fresh.rows),
+                        None if fresh.scale is None else cat("latent_scale", fresh.scale))
+    if isinstance(fresh, QuantizedKV):
+        return QuantizedKV(k=cat("k", fresh.k), v=cat("v", fresh.v),
+                           k_scale=cat("k_scale", fresh.k_scale),
+                           v_scale=cat("v_scale", fresh.v_scale))
+    return cat("k", fresh[0]), cat("v", fresh[1])
+
+
+def prefix_length(prefix: dict) -> int:
+    """The positions a :meth:`snapshot_prefix` dict holds."""
+    return next(iter(prefix.values())).shape[1]
+
+
+def read_kv_quantized(cache: dict, layer: int, use_kernel: bool = False):
+    """The layer's raw int8/int4 K/V and scales, or its latent codes and
+    scales (views, no copy)."""
+    if "latent" in cache:
+        return LatentKV(cache["latent"][layer], cache["latent_scale"][layer])
     return QuantizedKV(k=cache["k"][layer], v=cache["v"][layer],
                        k_scale=cache["k_scale"][layer], v_scale=cache["v_scale"][layer],
                        use_kernel=use_kernel)
 
 
 def read_kv(cache: dict, layer: int, dtype: torch.dtype = torch.float32):
-    """The layer's float (B, S_max, H, D) K/V."""
+    """The layer's float (B, S_max, H, D) K/V, or its float latent rows."""
+    if "latent" in cache:
+        return LatentKV(cache["latent"][layer].to(dtype))
     return cache["k"][layer].to(dtype), cache["v"][layer].to(dtype)

@@ -23,6 +23,9 @@ runs only the admitted rows. Over a weight-only tree it runs them as
 length-matched sub-forwards (``plan_admission``), so a short prompt is not
 padded to the longest one of its group; a tree that quantizes activations
 keeps one forward, whose dynamic int8 scales are taken over all its rows.
+Requests behind the registered prefix take the narrow admission too, as
+their own sub-forwards, which read the prefix's cache rows before their
+own; a wider admission runs them as one masked prefill call of their own.
 
 With ``pipeline > 1`` (serve mode) up to that many rounds are queued from the
 device-resident carry before any blob is read, and admissions into slots
@@ -51,7 +54,8 @@ from onnx_quantize_tpu_torch.engine.sampling import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Request", "ContinuousBatchingScheduler", "plan_admission", "ADMIT_M_FLOOR"]
+__all__ = ["Request", "ContinuousBatchingScheduler", "plan_admission", "ADMIT_M_FLOOR",
+           "ADMIT_M_CAP"]
 
 # The tokens (rows x padded width) below which an admission forward stops
 # getting proportionally cheaper: a narrow admission is planned as if each
@@ -63,6 +67,14 @@ __all__ = ["Request", "ContinuousBatchingScheduler", "plan_admission", "ADMIT_M_
 # Sampled admissions of 4-16 chat prompts planned at floors of 256-2048 ran
 # fastest at 1024 (within 0.3% of the best where another floor won).
 ADMIT_M_FLOOR = 1024
+
+# The most tokens (rows x padded width) a forward of two or more rows is
+# planned at; one longer prompt still runs alone. A dense-masked MoE
+# forward holds about 1 MB a token (every expert's float32 and bf16 gate/up
+# product at Qwen1.5-MoE-A2.7B's and DeepSeek-V2-Lite's widths), so 16,384
+# tokens, the length of a 16k-token prefix registered as one row, is a
+# transient of about 17-18 GB beside the cache and the weights.
+ADMIT_M_CAP = 16384
 
 
 def _bucket(n: int, max_seq: int) -> int:
@@ -82,7 +94,8 @@ def plan_admission(lengths, max_seq: int) -> list[list[int]]:
     indices into ``lengths``, each a sub-batch of consecutive prompts in
     length order (the shortest first), that together minimise the sum of
     ``max(rows x padded width, ADMIT_M_FLOOR)`` over the forwards, the fewest
-    forwards among equal sums. A sub-batch runs its exact rows at its longest
+    forwards among equal sums, no forward of two or more rows above
+    ``ADMIT_M_CAP`` tokens. A sub-batch runs its exact rows at its longest
     prompt's bucket; the whole admission as one forward keeps its rows
     bucketed to a power of two, as the single forward always ran, and is
     returned in the given order. Host arithmetic only: an exact dynamic
@@ -90,13 +103,15 @@ def plan_admission(lengths, max_seq: int) -> list[list[int]]:
     n = len(lengths)
     order = sorted(range(n), key=lambda i: (max(lengths[i], 1), i))
     width = [_bucket(lengths[i], max_seq) for i in order]
-    best = [(0, 0)] * (n + 1)  # (cost, forwards) of the plan of order[:j]
+    best = [(0, 0)] + [None] * n  # (cost, forwards) of the plan of order[:j]
     cut = [0] * (n + 1)
     for j in range(1, n + 1):
         for i in range(j):
             rows = _rows_bucket(n) if (i, j) == (0, n) else j - i
+            if j - i > 1 and rows * width[j - 1] > ADMIT_M_CAP:
+                continue
             cost = (best[i][0] + max(rows * width[j - 1], ADMIT_M_FLOOR), best[i][1] + 1)
-            if i == 0 or cost < best[j]:
+            if best[j] is None or cost < best[j]:
                 best[j], cut[j] = cost, i
     if cut[n] == 0:
         return [list(range(n))]
@@ -187,17 +202,7 @@ class ContinuousBatchingScheduler:
         if len(tokens) >= self.engine.max_seq:
             raise ValueError(
                 f"prefix length {len(tokens)} leaves no room in max_seq={self.engine.max_seq}")
-        B = self.engine.max_batch
-        ids = np.zeros((B, len(tokens)), np.int32)
-        ids[0, :] = tokens
-        lengths = np.zeros((B,), np.int32)
-        lengths[0] = len(tokens)
-        mask = np.zeros((B,), bool)
-        mask[0] = True
-        # A throwaway prefill into slot 0 of a scratch cache, then a snapshot.
-        scratch, _ = self.engine.prefill(self.engine.new_cache(), ids, np.maximum(lengths, 1),
-                                         slot_mask=mask)
-        self._prefix = self.engine.snapshot_prefix(scratch, 0, len(tokens))
+        self._prefix = self.engine.prefill_prefix(tokens)
         self._prefix_len = len(tokens)
         return self._prefix_len
 
@@ -239,9 +244,10 @@ class ContinuousBatchingScheduler:
             logger.debug("admitted request %d into slot %d", request.request_id, slot_id)
         return admitted
 
-    def _t_pad(self, admitted) -> int:
-        """The admission's padded width: the longest prompt's bucket."""
-        return _bucket(max(len(r.prompt) for _, r in admitted), self.engine.max_seq)
+    def _t_pad(self, admitted, cap: int | None = None) -> int:
+        """The admission's padded width: the longest prompt's bucket, at most
+        ``cap`` (default max_seq)."""
+        return _bucket(max(len(r.prompt) for _, r in admitted), cap or self.engine.max_seq)
 
     def _build_admit(self, admitted, offset: int = 0):
         """Padded (ids, lengths, mask) for a masked prefill of the batch.
@@ -257,7 +263,7 @@ class ContinuousBatchingScheduler:
             mask[slot_id] = True
         return ids, lengths, mask
 
-    def _build_admit_narrow(self, admitted):
+    def _build_admit_narrow(self, admitted, offset: int = 0):
         """(ids, lengths (A,), slots (A,)) for the narrow admission prefill.
 
         Where the engine's rows are independent (no site quantizes its
@@ -266,21 +272,24 @@ class ContinuousBatchingScheduler:
         consecutive rows of ``lengths`` and ``slots``. Otherwise, and where
         the plan is one forward, ``ids`` is one (A, T_pad) array whose rows
         are bucketed to a power of two; padding rows carry
-        ``slot = max_batch``, which the engine drops on the host."""
+        ``slot = max_batch``, which the engine drops on the host. ``offset``
+        is a registered prefix's length, for suffixes after it: the lengths
+        are totals, and the widths are bucketed within max_seq - offset."""
         B = self.engine.max_batch
-        plan = (plan_admission([len(r.prompt) for _, r in admitted], self.engine.max_seq)
+        cap = self.engine.max_seq - offset
+        plan = (plan_admission([len(r.prompt) for _, r in admitted], cap)
                 if self.engine.rows_independent else [list(range(len(admitted)))])
         pieces, lengths, slots = [], [], []
         for sub in plan:
             group = [admitted[i] for i in sub]
             rows = min(_rows_bucket(len(group)), B) if len(plan) == 1 else len(group)
-            ids = np.zeros((rows, self._t_pad(group)), np.int32)
+            ids = np.zeros((rows, self._t_pad(group, cap)), np.int32)
             for i, (slot_id, request) in enumerate(group):
                 ids[i, : len(request.prompt)] = request.prompt
-                lengths.append(max(len(request.prompt), 1))
+                lengths.append(offset + max(len(request.prompt), 1))
                 slots.append(slot_id)
                 self.lengths[slot_id] = lengths[-1]
-            lengths += [1] * (rows - len(group))
+            lengths += [offset + 1] * (rows - len(group))
             slots += [B] * (rows - len(group))
             pieces.append(ids)
         return (pieces[0] if len(plan) == 1 else pieces,
@@ -347,13 +356,42 @@ class ContinuousBatchingScheduler:
 
     # -- serve mode (chunk > 1): one engine call, one fetch a round ------
 
+    def _narrow(self, n: int) -> bool:
+        """Whether an admission of ``n`` rows takes the narrow path (mesh
+        engines always admit masked, as the JAX package's)."""
+        return self.narrow_admit and self.engine.mesh is None and n <= self.engine.max_batch // 2
+
+    def _joins(self, planned) -> bool:
+        """Whether the queue's head can join a planned admission beside
+        ``planned``: a prefix request, or any beside one, only while the
+        admission stays narrow."""
+        if not self.queue:
+            return False
+        if not (self.queue[0].use_prefix or any(r.use_prefix for _, r in planned)):
+            return True
+        return self._narrow(len(planned) + 1)
+
     def _admit_kwargs(self, admitted, with_budgets: bool) -> dict:
-        """serve_chunk's admission arguments (narrow or masked)."""
-        if (self.narrow_admit
-                and self.engine.mesh is None  # mesh engines: full admission
-                and len(admitted) <= self.engine.max_batch // 2):
-            ids, lengths, slots = self._build_admit_narrow(admitted)
-            kw = dict(admit_ids=ids, admit_lengths=lengths, admit_slots=slots)
+        """serve_chunk's admission arguments (narrow or masked); a narrow
+        admission runs its prefix requests as sub-forwards of their own."""
+        if self._narrow(len(admitted)):
+            groups = [(g, off) for g, off in (
+                ([a for a in admitted if a[1].use_prefix], self._prefix_len),
+                ([a for a in admitted if not a[1].use_prefix], 0)) if g]
+            built = [self._build_admit_narrow(g, off) if off else self._build_admit_narrow(g)
+                     for g, off in groups]
+            if len(built) == 1 and not groups[0][1]:
+                ids, lengths, slots = built[0]
+                kw = dict(admit_ids=ids, admit_lengths=lengths, admit_slots=slots)
+            else:
+                ids, prefixed = [], []
+                for (piece, _, _), (_, off) in zip(built, groups):
+                    more = piece if isinstance(piece, list) else [piece]
+                    ids += more
+                    prefixed += [bool(off)] * len(more)
+                kw = dict(admit_ids=ids, admit_lengths=np.concatenate([b[1] for b in built]),
+                          admit_slots=np.concatenate([b[2] for b in built]),
+                          admit_prefix=self._prefix, admit_prefixed=prefixed)
         else:
             ids, lengths, mask = self._build_admit(admitted)
             kw = dict(admit_ids=ids, admit_lengths=lengths, admit_mask=mask)
@@ -395,9 +433,9 @@ class ContinuousBatchingScheduler:
         with tracing.span("sched.plan"):
             admitted = self._assign_slots()
             prefixed = [a for a in admitted if a[1].use_prefix]
-            if prefixed:
-                # Prefix admissions run as their own masked prefill call; the
-                # serve round takes only plain admissions.
+            if prefixed and not self._narrow(len(admitted)):
+                # A wide admission runs its prefix requests as their own
+                # masked prefill call; the serve round takes the plain ones.
                 self._prefill_group(prefixed, prefixed=True)
                 admitted = [a for a in admitted if not a[1].use_prefix and not a[1].done]
             occupied = [(i, r) for i, r in enumerate(self.slots) if r is not None]
@@ -430,22 +468,20 @@ class ContinuousBatchingScheduler:
         for _ in range(self.pipeline - 1):
             with tracing.span("sched.plan"):
                 live = any(rem > 0 for rem in pred_rem.values())
-                plain_queue = bool(self.queue) and not self.queue[0].use_prefix
-                if not live and not plain_queue:
+                if not live and not self._joins([]):
                     break
                 new_admits: list[tuple[int, Request]] = []
-                if plain_queue:
-                    for s in range(B):
-                        if not (self.queue and not self.queue[0].use_prefix):
-                            break
-                        if s in occupant and pred_rem.get(s, 0) > 0:
-                            continue  # still (possibly) running
-                        request = self.queue.popleft()
-                        request.t_admitted = time.monotonic()
-                        occupant[s] = request
-                        new_admits.append((s, request))
-                        logger.debug("planned admission of request %d into slot %d",
-                                     request.request_id, s)
+                for s in range(B):
+                    if not self._joins(new_admits):
+                        break
+                    if s in occupant and pred_rem.get(s, 0) > 0:
+                        continue  # still (possibly) running
+                    request = self.queue.popleft()
+                    request.t_admitted = time.monotonic()
+                    occupant[s] = request
+                    new_admits.append((s, request))
+                    logger.debug("planned admission of request %d into slot %d",
+                                 request.request_id, s)
                 if not live and not new_admits:
                     break
                 eos, arrays = self._slot_arrays(occupant)

@@ -17,6 +17,12 @@ from onnx_quantize_tpu_torch.models.llama import (
     load_llama_hf,
     tiny_llama_config,
 )
+from onnx_quantize_tpu_torch.models.deepseek_v2 import (
+    DEEPSEEK_V2_LITE,
+    deepseek_v2_config,
+    load_deepseek_v2_hf,
+    tiny_deepseek_v2_config,
+)
 from onnx_quantize_tpu_torch.models.import_hf import load_gemma3_hf
 from onnx_quantize_tpu_torch.models.moe import (
     MIXTRAL_8X7B,
@@ -36,5 +42,6 @@ __all__ = ["Gemma3", "Gemma3Config", "Gemma3MoEMLP", "GEMMA3_270M", "GEMMA3_1B",
            "Llama", "llama_config", "tiny_llama_config", "LLAMA32_1B", "LLAMA32_3B", "QWEN25_05B",
            "MoE", "moe_config", "tiny_moe_config", "QWEN15_MOE_A27B", "MIXTRAL_8X7B",
            "stack_moe_experts", "fuse_moe_experts", "load_gemma3_hf", "load_llama_hf",
-           "load_qwen_moe_hf", "load_mixtral_hf", "TransformerLM", "TransformerConfig",
+           "load_qwen_moe_hf", "load_mixtral_hf", "DEEPSEEK_V2_LITE", "deepseek_v2_config",
+           "tiny_deepseek_v2_config", "load_deepseek_v2_hf", "TransformerLM", "TransformerConfig",
            "BertClassifier", "BertConfig"]

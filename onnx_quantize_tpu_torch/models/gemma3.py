@@ -27,7 +27,10 @@ per head after RoPE (so the K cache holds rotated rows) and
 matmuls, as the reference computes them outside any Pallas kernel. A forward
 given a ``Context`` records the calibration taps of the unfused sites.
 With ``num_experts > 0`` each block's MLP is a :class:`Gemma3MoEMLP`
-(``models/moe.py`` holds the MoE configs and the engine layouts).
+(``models/moe.py`` holds the MoE configs and the engine layouts), but for
+the ``first_k_dense_replace`` leading blocks, which keep a dense MLP. With
+``kv_lora_rank > 0`` each block's attention is multi-head latent attention
+(``models/mla.py``; DeepSeek-V2, ``models/deepseek_v2.py``).
 
 Parallelism hooks (``parallel/``): :meth:`Gemma3.tp_localize` returns a
 per-rank model whose markers run the collectives of tensor and expert
@@ -50,6 +53,7 @@ import torch
 from onnx_quantize_tpu_torch import tracing
 from onnx_quantize_tpu_torch.core.enums import QFormat
 from onnx_quantize_tpu_torch.engine.kv_cache import QuantizedKV
+from onnx_quantize_tpu_torch.models.mla import LatentAttention
 from onnx_quantize_tpu_torch.nn.layers import Embedding, RMSNorm, apply_rope
 from onnx_quantize_tpu_torch.nn.module import InputSpec, Linear, Module, apply_linear
 from onnx_quantize_tpu_torch.nn.qtensor import QTensor
@@ -59,8 +63,8 @@ from onnx_quantize_tpu_torch.utils import copy_tree
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Gemma3Config", "Gemma3", "Gemma3MoEMLP", "GEMMA3_270M", "GEMMA3_1B", "GEMMA3_4B",
-           "make_attention_mask", "make_attention_valid", "fuse_gemma3_projections",
+__all__ = ["Gemma3Config", "LatentConfig", "Gemma3", "Gemma3MoEMLP", "GEMMA3_270M", "GEMMA3_1B",
+           "GEMMA3_4B", "make_attention_mask", "make_attention_valid", "fuse_gemma3_projections",
            "glu_activation", "stacked_expert_mlp"]
 
 
@@ -105,6 +109,12 @@ class Gemma3Config:
     # Renormalize the top-k probabilities to sum to 1 (Mixtral: True;
     # Qwen1.5-MoE: False).
     norm_topk_prob: bool = True
+    # DeepSeek-V2's switches, fields of LatentConfig below; every other
+    # config reads these defaults (they are not fields, so a config's fields
+    # stay the JAX package's).
+    shared_expert_gated = True
+    first_k_dense_replace = 0
+    kv_lora_rank = 0
 
     def is_global_layer(self, idx: int) -> bool:
         return (idx + 1) % self.sliding_pattern == 0
@@ -123,6 +133,30 @@ class Gemma3Config:
         )
         base.update(kw)
         return cls(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentConfig(Gemma3Config):
+    """A Gemma3Config with DeepSeek-V2's switches (``models/deepseek_v2.py``
+    builds it)."""
+
+    # Whether the shared expert's output passes Qwen's sigmoid gate
+    # (DeepSeek-V2 adds its shared experts ungated).
+    shared_expert_gated: bool = True
+    # The leading blocks whose MLP stays dense (intermediate_size wide) in an
+    # MoE model (DeepSeek-V2's first_k_dense_replace).
+    first_k_dense_replace: int = 0
+    # Multi-head latent attention (models/mla.py): kv_lora_rank > 0 replaces
+    # every block's attention; head_dim, num_kv_heads, the biases, QK-norm
+    # and the sliding window are then unused.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN rope scaling of the latent attention's rope dims, as
+    # (factor, original_max_position, beta_fast, beta_slow, mscale,
+    # mscale_all_dim) (nn/layers.py::apply_rope).
+    rope_yarn: tuple | None = None
 
 
 GEMMA3_270M = Gemma3Config()
@@ -429,7 +463,7 @@ class Gemma3MoEMLP(Module):
     Every expert is a :class:`Gemma3MLP` in the ModuleList ``experts``, so
     its projections are sites ``layers.{i}.mlp.experts.{e}.gate_proj`` etc.;
     Qwen's shared expert ``shared`` is added through a sigmoid gate
-    ``shared_gate``.
+    ``shared_gate``, DeepSeek-V2's without one (``cfg.shared_expert_gated``).
 
     Execution is dense-masked: each expert runs over all rows with its
     unrouted rows zeroed (so its calibration taps see only its routed
@@ -467,7 +501,8 @@ class Gemma3MoEMLP(Module):
         if cfg.shared_expert_size:
             shared_cfg = dataclasses.replace(cfg, intermediate_size=cfg.shared_expert_size)
             self.shared = Gemma3MLP(shared_cfg)
-            self.shared_gate = Linear(d, 1, use_bias=False, dtype=dt)
+            if cfg.shared_expert_gated:
+                self.shared_gate = Linear(d, 1, use_bias=False, dtype=dt)
         self.use_ragged_prefill: bool | str = "auto"
         self.host_fetches = 0
         # Expert-parallel marker (set by tp_localize): the stacked experts'
@@ -650,8 +685,10 @@ class Gemma3MoEMLP(Module):
         if not self.cfg.shared_expert_size:
             return out
         with tracing.span("model.shared_expert"):
-            gate = self.shared_gate(params["shared_gate"], x, ctx=ctx)
             shared = self.shared._forward(params["shared"], x, ctx)
+            if not self.cfg.shared_expert_gated:
+                return (out.to(torch.float32) + shared.to(torch.float32)).to(x.dtype)
+            gate = self.shared_gate(params["shared_gate"], x, ctx=ctx)
             return out + (torch.sigmoid(gate.to(torch.float32))
                           * shared.to(torch.float32)).to(x.dtype)
 
@@ -661,8 +698,10 @@ class Gemma3Block(Module):
         super().__init__()
         d, eps, dt, one_plus = (cfg.hidden_size, cfg.rms_norm_eps, cfg.torch_dtype,
                                 cfg.rms_one_plus)
-        self.attn = Gemma3Attention(cfg, layer_idx)
-        self.mlp = Gemma3MoEMLP(cfg) if cfg.num_experts > 0 else Gemma3MLP(cfg)
+        self.attn = (LatentAttention(cfg, layer_idx) if cfg.kv_lora_rank
+                     else Gemma3Attention(cfg, layer_idx))
+        moe = cfg.num_experts > 0 and layer_idx >= cfg.first_k_dense_replace
+        self.mlp = Gemma3MoEMLP(cfg) if moe else Gemma3MLP(cfg)
         self.input_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
         self.pre_ffn_norm = RMSNorm(d, eps, dtype=dt, one_plus=one_plus)
         self.sandwich = cfg.sandwich_norms
@@ -703,7 +742,8 @@ def make_attention_mask(cfg: Gemma3Config, positions, kv_positions, is_global: b
 
 
 def fuse_gemma3_projections(params: dict) -> dict:
-    """Engine-load transform: fuse q/k/v and gate/up per layer when eligible.
+    """Engine-load transform: fuse q/k/v (a latent attention's q and kv_a)
+    and gate/up per layer when eligible.
 
     Apply after quantization. Returns a new params tree; the input is left
     untouched."""
@@ -714,11 +754,13 @@ def fuse_gemma3_projections(params: dict) -> dict:
         if not (isinstance(layer, dict) and "attn" in layer):
             continue
         attn = layer["attn"]
-        trio = [attn.get("q_proj"), attn.get("k_proj"), attn.get("v_proj")]
-        if all(t is not None for t in trio) and can_fuse(trio):
-            attn["_fused_qkv"] = {"w": fuse_sites(trio)[0]}
-            for key in ("q_proj", "k_proj", "v_proj"):
-                del attn[key]
+        for fused, keys in (("_fused_qkv", ("q_proj", "k_proj", "v_proj")),
+                            ("_fused_qa", ("q_proj", "kv_a_proj"))):
+            sites = [attn.get(key) for key in keys]
+            if all(t is not None for t in sites) and can_fuse(sites):
+                attn[fused] = {"w": fuse_sites(sites)[0]}
+                for key in keys:
+                    del attn[key]
         # The dense MLP, every MoE expert and the shared expert: each pair alone.
         mlp = layer["mlp"]
         subs = [mlp] + [v for k, v in mlp.items()
@@ -820,6 +862,8 @@ class Gemma3(Module):
         cfg = self.cfg
         if tp == 1:
             return self, [(r".*", "replicate")]
+        if cfg.kv_lora_rank:
+            raise NotImplementedError("tensor parallelism of latent attention")
         if cfg.num_heads % tp != 0:
             raise ValueError(f"num_heads={cfg.num_heads} not divisible by tp={tp}")
         kv_sharded = cfg.num_kv_heads % tp == 0
@@ -834,6 +878,8 @@ class Gemma3(Module):
         local = Gemma3(dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
                                            num_kv_heads=local_kv))
         moe = cfg.num_experts > 0
+        if moe and cfg.first_k_dense_replace:
+            raise NotImplementedError("tensor parallelism of an MoE model with dense layers")
         if moe and cfg.num_experts % tp != 0:
             raise ValueError(f"num_experts={cfg.num_experts} not divisible by tp={tp}")
         for block in local.layers:

@@ -15,7 +15,9 @@ While it is on:
   current stream. Their elapsed time is the span's device-stream time: from
   the moment the stream reaches the span's first work to the moment it
   passes its last, including any time the stream sat starved inside it.
-* ``count(name, n)`` adds ``n`` to an in-memory counter.
+* ``count(name, n)`` adds ``n`` to an in-memory counter; ``n`` may be a
+  0-d device tensor, summed on the device and read only by ``counts()``,
+  so a count of device values takes no host read where it is made.
 
 Both stores stay in memory until ``reset()``. ``device_ms()`` waits for
 each recorded event, so read it after the traced work.
@@ -41,6 +43,7 @@ SPANS = (
     "engine.admit",         # a round's admission prefill and first-token sampling
     "engine.decode",        # one decode step: forward, sampling, freezes
     "model.attention",      # projections, KV write and read, attention
+    "model.latent_attention",  # the latent attend: q_lat to the W_UV product
     "model.router",         # the MoE router and its top-k
     "model.experts",        # the routed experts, on every path
     "model.shared_expert",  # the gated shared expert
@@ -51,16 +54,19 @@ SPANS = (
 # use. Under the profiler an event pair costs a decode step's host ~0.25 ms
 # (PERF.md), so the other spans mark the host timeline only; the profiler's
 # trace shows their device extent.
-TIMED = ("engine.serve_chunk", "engine.admit", "engine.decode", "model.experts")
+TIMED = ("engine.serve_chunk", "engine.admit", "engine.decode", "model.experts",
+         "model.latent_attention")
 COUNTERS = (
     "sched.admit_tokens",         # prompt tokens admitted
     "sched.admit_padded_tokens",  # tokens the admission forwards run
     "sched.admit_forwards",       # forwards the admissions run
+    "attn.latent_rows",           # live latent rows the attends read (rows x layers)
+    "attn.latent_pairs",          # visible (query, key) pairs of the attends (x layers)
 )
 _SPAN_SET, _TIMED_SET, _COUNTER_SET = frozenset(SPANS), frozenset(TIMED), frozenset(COUNTERS)
 
 _OFF = contextlib.nullcontext()
-_counts: dict[str, int] = {}
+_counts: dict[str, int | torch.Tensor] = {}
 _events: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
 
 
@@ -107,18 +113,20 @@ def span(name: str):
     return _Span(name)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` while a profiler records."""
+def count(name: str, n: int | torch.Tensor = 1) -> None:
+    """Add ``n`` (an int, or a 0-d tensor kept on its device) to counter
+    ``name`` while a profiler records."""
     if not _profiler._is_profiler_enabled:
         return
     if name not in _COUNTER_SET:
         raise ValueError(f"undeclared counter {name!r} (tracing.COUNTERS)")
-    _counts[name] = _counts.get(name, 0) + int(n)
+    _counts[name] = _counts.get(name, 0) + (n if isinstance(n, torch.Tensor) else int(n))
 
 
 def counts() -> dict[str, int]:
-    """The counters recorded since the last ``reset``."""
-    return dict(_counts)
+    """The counters recorded since the last ``reset`` (a device count is
+    read here)."""
+    return {name: int(n) for name, n in _counts.items()}
 
 
 def device_ms() -> dict[str, tuple[int, float]]:

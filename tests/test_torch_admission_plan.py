@@ -21,7 +21,8 @@ from onnx_quantize_tpu_torch.engine import (
     SamplingParams,
     prepare_kernel_scales,
 )
-from onnx_quantize_tpu_torch.engine.scheduler import ADMIT_M_FLOOR, plan_admission
+from onnx_quantize_tpu_torch.engine import scheduler as sched_mod
+from onnx_quantize_tpu_torch.engine.scheduler import ADMIT_M_CAP, ADMIT_M_FLOOR, plan_admission
 from onnx_quantize_tpu_torch.models.gemma3 import Gemma3, Gemma3Config, fuse_gemma3_projections
 from onnx_quantize_tpu_torch.models.moe import (
     fuse_moe_experts,
@@ -102,6 +103,49 @@ def test_plan_partitions_rows_at_least_cost(seed):
     if n <= 8:
         best = min(_cost(lengths, part) for part in _partitions(list(range(n))))
         assert _cost(lengths, plan) == best
+
+
+def _forward_tokens(lengths, plan, max_seq):
+    """Each forward's tokens: rows (bucketed to a power of two when the plan
+    is one forward) x its longest prompt's bucket."""
+    def bucket(n):
+        return max(min(-(-max(n, 1) // 64) * 64, max_seq), n)
+
+    if len(plan) == 1:
+        return [(1 << (len(lengths) - 1).bit_length()) * bucket(max(lengths))]
+    return [len(sub) * bucket(max(lengths[i] for i in sub)) for sub in plan]
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_plan_forwards_stay_under_the_cap(seed):
+    """Prompts of 1-4k (the long-context cell's law) and 16k-token single
+    rows: no forward of two or more rows above ADMIT_M_CAP tokens, and a
+    row longer than the cap runs alone."""
+    rng = np.random.default_rng(1000 + seed)
+    n = [2, 4, 8, 12, 16, 24, 32][seed % 7]
+    lengths = np.clip(np.round(np.exp(np.log(2048.0) + 0.5 * rng.standard_normal(n))),
+                      1024, 4096).astype(int).tolist()
+    if seed % 3 == 0:
+        lengths[0] = ADMIT_M_CAP + 5
+    max_seq = ADMIT_M_CAP + 2048
+    plan = plan_admission(lengths, max_seq)
+    assert sorted(i for sub in plan for i in sub) == list(range(n))
+    for sub, tokens in zip(plan, _forward_tokens(lengths, plan, max_seq)):
+        assert len(sub) == 1 or tokens <= ADMIT_M_CAP, (sub, tokens)
+
+
+@pytest.mark.parametrize("seed", range(36))
+def test_plan_is_unchanged_where_the_cap_does_not_bind(seed, monkeypatch):
+    """Over the chat prompt sets above (at most 32 rows of at most 2048
+    tokens), the plan equals the plan without a cap wherever that plan's
+    forwards all lie within it."""
+    lengths = _length_set(seed)
+    monkeypatch.setattr(sched_mod, "ADMIT_M_CAP", 1 << 40)
+    free = plan_admission(lengths, MAX_SEQ)
+    monkeypatch.undo()
+    if all(t <= ADMIT_M_CAP or len(sub) == 1
+           for sub, t in zip(free, _forward_tokens(lengths, free, MAX_SEQ))):
+        assert plan_admission(lengths, MAX_SEQ) == free
 
 
 def test_plan_of_short_prompts_and_of_a_spread():

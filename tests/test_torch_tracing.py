@@ -155,7 +155,7 @@ def test_one_moe_serve_step_records_every_span_nested(moe):
     by, forwards, layers = _one_step(moe)
     # Every span but the dense MLP's: the MoE's shared expert runs its MLP
     # inside model.shared_expert.
-    assert set(by) == set(tracing.SPANS) - {"model.mlp"}
+    assert set(by) == set(tracing.SPANS) - {"model.mlp", "model.latent_attention"}
     for name in MOE_LAYER_SPANS:
         assert len(by[name]) == forwards * layers, name
     assert len(by["model.lm_head"]) == forwards
@@ -164,7 +164,7 @@ def test_one_moe_serve_step_records_every_span_nested(moe):
 def test_one_dense_serve_step_records_the_mlp(dense):
     by, forwards, layers = _one_step(dense)
     assert set(by) == set(tracing.SPANS) - {"model.router", "model.experts",
-                                            "model.shared_expert"}
+                                            "model.shared_expert", "model.latent_attention"}
     assert len(by["model.mlp"]) == len(by["model.attention"]) == forwards * layers
 
 
